@@ -1,0 +1,23 @@
+"""bundlesdf_tpu_torch — the PyTorch + CUDA port of `bundlesdf_tpu`.
+
+The JAX package `bundlesdf_tpu` is the reference; this package keeps its
+module layout and names (`ops/scatter.py`, `ops/hashgrid.py`,
+`nof/render.py`, ...) so each module's counterpart is found by path. It
+imports torch and never jax.
+
+Ported so far: the Neural Object Field training step (`nof.runner.NofRunner`
+→ `train()`), with the hash-grid table gradient running through a
+hand-written CUDA kernel (`csrc/scatter_rows.cu`, bound in
+`ops/scatter.py`).
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# Pose/geometry math must not silently round through TF32: float32 matmuls
+# and convolutions run in full precision (the JAX package forces "highest"
+# matmul precision for the same reason). Speed-critical NOF matmuls opt
+# into bf16 via explicit dtypes under `amp`.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,128 @@
+"""Row scatter-add for the hash-grid backward: a CUDA kernel and its plain
+PyTorch twin.
+
+Port of `bundlesdf_tpu/ops/scatter.py`. The JAX package rebuilds this
+scatter from sorted tiles, one-hot matmuls and a Pallas kernel because a
+TPU scatters row by row; on Hopper the same function is one pass of f32
+atomics (`csrc/scatter_rows.cu`, whose header says what bounds it).
+
+Contract (as `scatter_rows_sorted_tiles` / `scatter_rows_xla`):
+`scatter_rows(vals, rows, n_rows)` returns an (n_rows, C) float32 tensor
+`out[r] = sum of vals[m] over rows[m] == r`; a row id outside [0, n_rows)
+(the sentinel `n_rows`) is dropped; the sum accumulates in float32 and
+`vals` may be float32 or bfloat16.
+
+The kernel is built at first use with `nvcc` from the `.cu` in this
+package into `csrc/build/` and bound through ctypes: a plain C entry point
+builds in seconds, where a PyTorch C++ extension takes minutes.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+
+import torch
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc")
+_SOURCE = os.path.join(_CSRC, "scatter_rows.cu")
+BUILD_DIR = os.path.join(_CSRC, "build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def scatter_rows_torch(vals, rows, n_rows: int):
+    """Plain PyTorch version: `index_add_` over the in-range rows."""
+    keep = (rows >= 0) & (rows < n_rows)
+    out = torch.zeros((n_rows, vals.shape[-1]), dtype=torch.float32,
+                      device=vals.device)
+    return out.index_add_(0, rows[keep].long(), vals[keep].float())
+
+
+def _find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        nvcc = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin); the "
+                           "scatter_rows CUDA kernel cannot be built")
+    return nvcc
+
+
+def build_library() -> tuple[str, str]:
+    """Compile `csrc/scatter_rows.cu` into `csrc/build/` unless a build of
+    the same source is already there. Returns (path, compiler output).
+    Raises if the build fails."""
+    with open(_SOURCE, "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()
+                              ).hexdigest()[:12]
+    path = os.path.join(BUILD_DIR, f"libscatter_rows_{digest}.so")
+    if os.path.exists(path):
+        return path, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                           f"\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, path)  # atomic: concurrent builders never see a partial .so
+    return path, proc.stdout + proc.stderr
+
+
+@functools.cache
+def _library():
+    path, _ = build_library()
+    lib = ctypes.CDLL(path)
+    fn = lib.bsdf_scatter_rows
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def scatter_rows(vals, rows, n_rows: int):
+    """Row scatter-add (see module docstring). CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise -- never a fallback."""
+    if vals.device.type == "cpu" and rows.device.type == "cpu":
+        return scatter_rows_torch(vals, rows, n_rows)
+    if vals.device.type != "cuda" or rows.device != vals.device:
+        raise ValueError(f"scatter_rows: vals on {vals.device}, rows on "
+                         f"{rows.device}; both must be on one CUDA device")
+    if vals.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"scatter_rows: vals must be float32 or bfloat16, "
+                        f"got {vals.dtype}")
+    if rows.dtype != torch.int32:
+        raise TypeError(f"scatter_rows: rows must be int32, got {rows.dtype}")
+    if vals.dim() != 2 or rows.dim() != 1 or rows.shape[0] != vals.shape[0]:
+        raise ValueError(f"scatter_rows: need vals (M, C) and rows (M,), got "
+                         f"{tuple(vals.shape)} and {tuple(rows.shape)}")
+    if not (vals.is_contiguous() and rows.is_contiguous()):
+        raise ValueError("scatter_rows: vals and rows must be contiguous")
+    if not 0 < n_rows < 2 ** 31:
+        raise ValueError(f"scatter_rows: n_rows {n_rows} out of int32 range")
+    M, C = vals.shape
+    out = torch.zeros((n_rows, C), dtype=torch.float32, device=vals.device)
+    if M == 0:
+        return out
+    fn = _library()
+    with torch.cuda.device(vals.device):
+        err = fn(vals.data_ptr(), int(vals.dtype == torch.bfloat16),
+                 rows.data_ptr(), out.data_ptr(), M, C, n_rows,
+                 torch.cuda.current_stream(vals.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"scatter_rows kernel launch failed: CUDA error "
+                           f"{err}")
+    scatter_rows.launches += 1
+    return out
+
+
+# kernel launches since the last reset (chip_smoke.py checks that the
+# training step went through the kernel)
+scatter_rows.launches = 0

@@ -15,6 +15,11 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (and nvcc); skips without one")
+
+
 @pytest.fixture(autouse=True)
 def _seed():
     np.random.seed(0)

@@ -1,0 +1,120 @@
+"""Port parity: the PyTorch hash-grid encoder against the numpy golden
+(forward) and `jax.grad` of the JAX encoder (table and point gradients).
+The spec hashes its two finest levels into 2 x 16,384 rows, so the JAX
+backward of those levels runs the Pallas sorted-tile scatter."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bundlesdf_tpu.ops import hashgrid as jhg
+from bundlesdf_tpu_torch.ops import hashgrid as thg
+
+torch.set_num_threads(2)
+
+# base 8 -> finest 48 over 4 levels: res 8, 14, 26, 48; levels 2-3 hash
+_SPEC = dict(n_levels=4, level_dim=2, base_res=8, finest_res=48,
+             log2_hashmap_size=14)
+
+
+def _ray_points(n_rays=64, n_samples=24, seed=0):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-0.4, 0.4, (n_rays, 3))
+    d = rng.standard_normal((n_rays, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.sort(rng.uniform(0.0, 0.8, (n_rays, n_samples)), axis=1)
+    pts = o[:, None] + d[:, None] * t[..., None]
+    return np.clip(pts.reshape(-1, 3), -0.99, 0.99).astype(np.float32)
+
+
+def _table(spec, seed=1):
+    rng = np.random.default_rng(seed)
+    return rng.uniform(-1e-1, 1e-1, (spec.total_rows, spec.level_dim)
+                       ).astype(np.float32)
+
+
+@pytest.mark.parametrize("kw", [_SPEC, dict(n_levels=4, level_dim=2,
+                                            base_res=16, finest_res=128,
+                                            log2_hashmap_size=22)])
+def test_layout_matches_jax(kw):
+    assert thg.HashGridSpec(**kw).layout() == jhg.HashGridSpec(**kw).layout()
+
+
+def test_online_layout_rows():
+    """The online config: four dense levels, 2,462,164 rows."""
+    spec = thg.HashGridSpec()
+    assert [d for _, d, _, _ in spec.layout()] == [True] * 4
+    assert spec.total_rows == 17 ** 3 + 33 ** 3 + 65 ** 3 + 129 ** 3 == 2462164
+
+
+@pytest.mark.parametrize("table_bf16", [False, True])
+def test_forward_matches_numpy_golden(table_bf16):
+    spec = thg.HashGridSpec(**_SPEC, table_bf16=table_bf16)
+    x = np.random.default_rng(2).uniform(-1, 1, (512, 3)).astype(np.float32)
+    table = _table(spec)
+    out = thg.hashgrid_encode(torch.from_numpy(table), torch.from_numpy(x),
+                              spec)
+    assert out.shape == (512, spec.out_dim) and out.dtype == torch.float32
+    ref_table = (torch.from_numpy(table).bfloat16().float().numpy()
+                 if table_bf16 else table)
+    ref = thg.hashgrid_encode_np(ref_table, x, spec)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+    # the port's golden is a copy of the JAX package's
+    np.testing.assert_array_equal(
+        ref, jhg.hashgrid_encode_np(ref_table, x, jhg.HashGridSpec(**_SPEC)))
+
+
+def test_gradients_match_jax():
+    x = _ray_points()
+    jspec = jhg.HashGridSpec(**_SPEC, scatter_bf16=False, table_bf16=False)
+    tspec = thg.HashGridSpec(**_SPEC)
+    table = _table(tspec)
+    cot = np.random.default_rng(3).standard_normal(
+        (x.shape[0], tspec.out_dim)).astype(np.float32)
+
+    def jloss(tab, pts):
+        return jnp.sum(jhg.hashgrid_encode(tab, pts, jspec) * cot)
+
+    gt_j, gx_j = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(table),
+                                                  jnp.asarray(x))
+    tab_t = torch.tensor(table, requires_grad=True)
+    x_t = torch.tensor(x, requires_grad=True)
+    torch.sum(thg.hashgrid_encode(tab_t, x_t, tspec)
+              * torch.from_numpy(cot)).backward()
+    # f32 both sides; sums of the same terms in another order
+    np.testing.assert_allclose(tab_t.grad.numpy(), np.asarray(gt_j),
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(x_t.grad.numpy(), np.asarray(gx_j),
+                               rtol=1e-4, atol=1e-6)
+    assert np.abs(np.asarray(gt_j)[jspec.layout()[2][3]:]).max() > 0
+
+
+def test_hash_rows_match_uint32_arithmetic():
+    """The hashed rows reproduce the reference's uint32 prime hash
+    (products wrap mod 2^32) for corner coordinates large enough to wrap:
+    a level of res 2048 hashed into 2^31 rows keeps 31 of the 32 bits."""
+    spec = thg.HashGridSpec(n_levels=2, level_dim=2, base_res=16,
+                            finest_res=2048, log2_hashmap_size=31)
+    res, dense, _, off = spec.layout()[1]
+    assert not dense
+    x = np.random.default_rng(4).uniform(-1, 1, (256, 3)).astype(np.float32)
+    rows, _ = thg.hashgrid_corners(torch.from_numpy(x), spec)
+    x01 = np.clip((x + 1.0) * 0.5, 0.0, 1.0)
+    x0 = np.clip(np.floor(x01 * np.float32(res)).astype(np.int64), 0, res - 1)
+    c = (x0[:, None, :] + thg._CORNERS[None]).astype(np.uint32)     # (N,8,3)
+    with np.errstate(over="ignore"):
+        h = ((c[..., 0] * np.uint32(thg._PRIMES[0]))
+             ^ (c[..., 1] * np.uint32(thg._PRIMES[1]))
+             ^ (c[..., 2] * np.uint32(thg._PRIMES[2])))
+    want = (h & np.uint32(spec.table_size - 1)).astype(np.int64) + off
+    np.testing.assert_array_equal(rows[:, 1].numpy().astype(np.int64), want)
+
+
+def test_gather_rows_sentinel_gathers_zero_and_drops_gradient():
+    table = torch.arange(8, dtype=torch.float32).reshape(4, 2).requires_grad_()
+    rows = torch.tensor([1, 4, 1, 3], dtype=torch.int32)
+    got = thg.GatherRows.apply(table, rows, torch.float32)
+    assert torch.equal(got[1], torch.zeros(2))
+    got.sum().backward()
+    assert torch.equal(table.grad[:, 0], torch.tensor([0.0, 2.0, 0.0, 1.0]))
