@@ -8,7 +8,9 @@ imports torch and never jax.
 Ported so far: the Neural Object Field training step (`nof.runner.NofRunner`
 → `train()`), with the hash-grid table gradient running through a
 hand-written CUDA kernel (`csrc/scatter_rows.cu`, bound in
-`ops/scatter.py`).
+`ops/scatter.py`); and the per-frame tracker, tracker-only
+(`bundlesdf.BundleSdf.run` over `tracker/`, `matcher/`,
+`ops/preprocess.py`).
 """
 
 __version__ = "0.1.0"

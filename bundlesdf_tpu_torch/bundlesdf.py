@@ -1,0 +1,500 @@
+"""BundleSdf orchestrator, tracker-only: the per-frame tracking pipeline.
+
+Port of the tracker path of `bundlesdf_tpu/bundlesdf.py` (ref
+`bundlesdf.py:266-766`): `BundleSdf(cfg_track=..., device=...).run(color,
+depth, K, id_str, mask, occ_mask, pose_in_model)` once per frame, then
+`on_finish()`. Frame k's BA result is pulled, and its keyframe admission
+and artifacts done, at the start of frame k+1, after frame k+1's depth
+chain and feature detection are issued (`async_pipeline`), so host work
+overlaps the solve on the device.
+
+The Neural Object Field (NOF) half of the orchestrator is not ported yet
+(ROADMAP queue 1, item 7): a run that reaches `start_nerf_keyframes`
+keyframes, where the JAX package starts the NOF, raises
+NotImplementedError instead of skipping it.
+"""
+from __future__ import annotations
+
+import contextlib
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from bundlesdf_tpu_torch.config import (default_nerf_config,
+                                        default_track_config, load_config)
+from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
+from bundlesdf_tpu_torch.tracker.bundler import Bundler
+from bundlesdf_tpu_torch.tracker.frame import Frame, FrameStatus
+
+_NOF_TODO = ("the Neural Object Field is not ported to bundlesdf_tpu_torch "
+             "yet (ROADMAP.md queue 1, item 7); run tracker-only with "
+             "start_nerf_keyframes larger than the keyframe count")
+
+
+def resize_nearest(img, size):
+    """cv2.resize(img, size=(w, h), interpolation=cv2.INTER_NEAREST) in
+    numpy: destination pixel x reads source floor(x * W0 / w), clipped."""
+    img = np.asarray(img)
+    w, h = size
+    H0, W0 = img.shape[:2]
+    xs = np.minimum(np.floor(np.arange(w) * (W0 / w)).astype(np.int64),
+                    W0 - 1)
+    ys = np.minimum(np.floor(np.arange(h) * (H0 / h)).astype(np.int64),
+                    H0 - 1)
+    return img[ys[:, None], xs[None, :]]
+
+
+class BundleSdf:
+    def __init__(self, cfg_track_dir=None, cfg_nerf_dir=None,
+                 start_nerf_keyframes=5, matcher=None, use_gui=False,
+                 cfg_track=None, cfg_nerf=None, device="cpu"):
+        """@cfg_track_dir/@cfg_nerf_dir: YAML paths (reference schemas), or
+        pass dicts directly via @cfg_track/@cfg_nerf. @device: where the
+        frame pool, matching, RANSAC and BA run."""
+        self.cfg_track = (cfg_track if cfg_track is not None
+                          else load_config(cfg_track_dir,
+                                           default_track_config()))
+        self.cfg_nerf = (cfg_nerf if cfg_nerf is not None
+                         else load_config(cfg_nerf_dir,
+                                          default_nerf_config()))
+        if use_gui:
+            raise NotImplementedError("the GUI is not ported to "
+                                      "bundlesdf_tpu_torch (ROADMAP.md queue "
+                                      "1, item 12)")
+        self.device = torch.device(device)
+        self.start_nerf_keyframes = start_nerf_keyframes
+        self.debug_dir = self.cfg_track["debug_dir"]
+        self.SPDLOG = int(self.cfg_track.get("SPDLOG", 1))
+        os.makedirs(self.debug_dir, exist_ok=True)
+        if matcher is not None:
+            self.matcher = matcher
+        else:
+            ckpt = self.cfg_track.get("loftr_ckpt", "")
+            if ckpt and os.path.exists(ckpt):
+                raise NotImplementedError(
+                    "loftr_ckpt is set: the LoFTR matcher is not ported to "
+                    "bundlesdf_tpu_torch (ROADMAP.md queue 1, item 10)")
+            self.matcher = OrbMatcher(device=self.device)
+        self.bundler = Bundler(self.cfg_track, self.matcher,
+                               device=self.device)
+        fc_cfg = self.cfg_track["feature_corres"]
+        # the fused matcher is the default on the card; the CPU keeps the
+        # batched-matcher -> lift+RANSAC split unless the config asks
+        self.fused = bool(fc_cfg.get("fused_matcher",
+                                     self.device.type == "cuda"))
+        # the fused matcher evaluates the non-neighbor covisibility gate
+        # inside its own call: get_feature_match_pairs defers unknown pairs
+        # to it instead of computing them separately
+        self.bundler._defer_covis_gate = bool(
+            self.fused and not fc_cfg.get("map_points", False)
+            and hasattr(self.matcher, "_frame_feats"))
+        self.K = None
+        self.cnt = -1
+
+        # cross-frame pipelining: frame k's BA pull + admission + artifact
+        # writes are deferred until frame k+1's preprocess/detect have been
+        # issued. Frame state (pose, status, keyframe admission, saved
+        # artifacts) is FINAL once the next run() call starts processing,
+        # or after flush_pipeline()/on_finish(). Disable with
+        # cfg_track["async_pipeline"]=False for strictly synchronous
+        # per-frame semantics.
+        self.async_pipeline = bool(self.cfg_track.get("async_pipeline",
+                                                      True))
+        self._deferred = None  # (frame, pending BA)
+
+        # keyframes the NOF would have been fed (ref kf_to_nerf_list)
+        self.n_nerf_keyframes = 0
+        # per-frame wall stage timing (cfg_track['stage_timing']: true):
+        # one {stage: seconds} dict per run() call. Pure perf_counter
+        # spans, no device barriers, so the split is what the host loop
+        # actually waits on.
+        self._stage_timing = bool(self.cfg_track.get("stage_timing", False))
+        self.stage_stats: list[dict] = []
+        self._cur_stages: dict | None = None
+
+    # ------------------------------------------------------------------
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        """Accumulate wall seconds into the current frame's stage dict
+        (unless stage_timing is off), and mark the span `stage:<name>` for
+        torch.profiler, which then sums the device time of the kernels
+        the stage launched."""
+        with torch.profiler.record_function(f"stage:{name}"):
+            if not self._stage_timing or self._cur_stages is None:
+                yield
+                return
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self._cur_stages[name] = (self._cur_stages.get(name, 0.0)
+                                          + time.perf_counter() - t0)
+
+    # ------------------------------------------------------------------
+    def make_frame(self, color, depth, K, id_str, mask=None, occ_mask=None,
+                   pose_in_model=np.eye(4)):
+        self.cnt += 1
+        H, W = np.asarray(color).shape[:2]
+        pool = self.bundler.ensure_pool(H, W)
+        return Frame(color, depth, K, self.cnt, id_str, self.cfg_track,
+                     mask=mask, occ_mask=occ_mask, pose_in_model=pose_in_model,
+                     pool=pool)
+
+    # ------------------------------------------------------------------
+    # find_corres (ref bundlesdf.py:352-387)
+    # ------------------------------------------------------------------
+    def find_corres(self, frame_pairs):
+        b = self.bundler
+        if not frame_pairs:
+            return
+        is_match_ref = (len(frame_pairs) == 1
+                        and frame_pairs[0][0].ref_frame_id
+                        == frame_pairs[0][1].id
+                        and b.new_frame is frame_pairs[0][0])
+        # map-point propagation augments net matches with multi-frame
+        # tracks (ref findCorresByMapPoints, feature_corres.map_points)
+        use_map_points = self.cfg_track["feature_corres"].get("map_points",
+                                                              False)
+        min_match_with_ref = \
+            self.cfg_track["feature_corres"]["min_match_with_ref"]
+        if (self.fused and not use_map_points
+                and hasattr(self.matcher, "_frame_feats")):
+            # ORB match + lift + gate + RANSAC on the device, one host pull
+            n_raw = b.match_pairs_fused(frame_pairs, self.matcher)
+            if is_match_ref and n_raw[0] < min_match_with_ref:
+                b.new_frame.status = FrameStatus.FAIL
+                logging.info(
+                    f"frame {b.new_frame.id_str} FAIL: no matching")
+            return
+        if not hasattr(self.matcher, "match_frames"):
+            raise NotImplementedError(
+                "matchers without match_frames (the LoFTR predict path with "
+                "its pair canonicalization) are not ported to "
+                "bundlesdf_tpu_torch (ROADMAP.md queue 1, item 10)")
+        raw = self.matcher.match_frames(frame_pairs)
+
+        if use_map_points:
+            merged = []
+            for (fA, fB), uv in zip(frame_pairs, raw):
+                prop = b.propagate_matches(fA, fB)
+                if len(prop):
+                    uv = np.concatenate(
+                        [np.asarray(uv).reshape(-1, uv.shape[1]
+                                                if len(uv) else 5), prop],
+                        axis=0)
+                merged.append(uv)
+            raw = merged
+
+        if is_match_ref and len(raw[0]) < min_match_with_ref:
+            b.new_frame.status = FrameStatus.FAIL
+            logging.info(f"frame {b.new_frame.id_str} FAIL: no matching")
+            return
+        b.match_pairs(frame_pairs, raw)
+        if use_map_points:
+            for fA, fB in frame_pairs:
+                b.update_map_points(fA, fB)
+
+    # ------------------------------------------------------------------
+    # per-frame pipeline (ref process_new_frame bundlesdf.py:391-506)
+    # ------------------------------------------------------------------
+    def process_new_frame(self, frame: Frame):
+        b = self.bundler
+        b.new_frame = frame
+        b._covis_gate_pending = set()
+        cfg = self.cfg_track
+
+        if frame.id > 0:
+            ref_frame = b.frames[list(b.frames.keys())[-1]]
+            frame.ref_frame_id = ref_frame.id
+            frame.pose_in_model = ref_frame.pose_in_model.copy()
+        else:
+            b.first_frame = frame
+
+        # the mask was applied inside the depth chain at construction;
+        # re-invalidation only happens when the mask shrinks
+        # (point_cloud_denoise below)
+        if frame.id == 0 and np.abs(frame.pose_in_model
+                                    - np.eye(4)).max() <= 1e-4:
+            frame.set_new_init_coordinate()
+
+        n_fg = int((frame.fg_mask > 0).sum())
+        if n_fg < 100:
+            logging.info(f"frame {frame.id_str} empty mask, FAIL "
+                         f"(n_fg={n_fg})")
+            frame.status = FrameStatus.FAIL
+            b.forget_frame(frame)
+            return
+
+        if cfg["depth_processing"].get("denoise_cloud", False):
+            frame.point_cloud_denoise()
+
+        # host feature detection runs before the valid-count wait: it
+        # hides the device->host transfer started at preprocess time
+        if hasattr(self.matcher, "_frame_feats"):
+            self.matcher._frame_feats(frame)
+
+        with self._stage("valid_pull"):
+            n_valid = frame.count_valid_points()
+        n_valid_first = b.first_frame.count_valid_points()
+        if n_valid < n_valid_first / 40.0:
+            logging.info(f"frame {frame.id_str} too few valid points "
+                         f"({n_valid} vs first {n_valid_first}), FAIL")
+            frame.status = FrameStatus.FAIL
+            b.forget_frame(frame)
+            return
+
+        if frame.id == 0:
+            b.check_and_add_keyframe(frame)
+            b.frames[frame.id] = frame
+            return
+
+        min_match_with_ref = cfg["feature_corres"]["min_match_with_ref"]
+        # arm the ref-match fusion: device procrustes + window-selection
+        # covisibility ride the ref-match call whenever the selection will
+        # need covisibility scores
+        b._covis_seed = None
+        max_ba = cfg["bundle"]["max_BA_frames"]
+        sel_method = cfg["bundle"].get("subset_selection_method",
+                                       "normal_orientation_nearest")
+        if (len(b.keyframes) + 1 > max_ba
+                and sel_method == "normal_orientation_nearest"
+                and getattr(b, "_defer_covis_gate", False)):
+            b._sel_ctx = {
+                "kfs": list(b.keyframes),
+                "extra_pairs": b._unscored_kf_pairs(list(b.keyframes))}
+        with self._stage("ref_match"):
+            self.find_corres([(frame, ref_frame)])
+        if frame.status == FrameStatus.FAIL:
+            b.forget_frame(frame)
+            return
+        rres = getattr(b, "_ref_match_result", None)
+
+        # re-localize against the keyframe pool by covisibility if the ref
+        # match failed (ref bundlesdf.py:443-471)
+        if b.n_matches(frame, ref_frame) < min_match_with_ref:
+            rres = None  # fused offset/covis were for the failed ref pose
+            with self._stage("relocalize"):
+                visibles = b.covisibility_many(frame, b.keyframes)
+                found = False
+                for idx in np.argsort(visibles)[::-1]:
+                    kf = b.keyframes[idx]
+                    logging.info(f"trying new ref frame {kf.id_str}")
+                    ref_frame = kf
+                    frame.ref_frame_id = kf.id
+                    frame.pose_in_model = kf.pose_in_model.copy()
+                    self.find_corres([(frame, kf)])
+                    if b.n_matches(frame, kf) >= min_match_with_ref:
+                        logging.info(f"re-chose ref frame {kf.id_str}")
+                        found = True
+                        break
+            if not found:
+                frame.status = FrameStatus.FAIL
+                logging.info(f"frame {frame.id_str} no suitable ref, FAIL")
+                b.forget_frame(frame)
+                return
+
+        if rres is not None and rres["pair"] == (frame.id, ref_frame.id):
+            # device procrustes from the fused ref-match call; its guards
+            # (count, degeneracy, neighbor residual) collapsed the offset to
+            # identity whenever the host logic would have
+            offset = rres["offset"]
+            if not rres["use"]:
+                logging.info(
+                    f"procrustes {frame.id_str}-{ref_frame.id_str}: device "
+                    f"guards rejected pose (err={rres['err']:.5f}), identity")
+            b._covis_seed = rres["covis"]
+        else:
+            offset = b.procrustes(frame, ref_frame)
+        frame.pose_in_model = offset @ frame.pose_in_model
+
+        # window eviction (ref bundlesdf.py:479-487)
+        window_size = cfg["bundle"]["window_size"]
+        if len(b.frames) - len(b.keyframes) > window_size:
+            for fid in list(b.frames.keys()):
+                if b.forget_frame(b.frames[fid]):
+                    logging.info(f"window full, forget {fid}")
+                    break
+
+        b.frames[frame.id] = frame
+        b.select_keyframes_for_ba()
+        pairs = b.get_feature_match_pairs(b.local_frames)
+        with self._stage("window_match"):
+            self.find_corres(pairs)
+        if frame.status == FrameStatus.FAIL:
+            b.forget_frame(frame)
+            return
+
+        with self._stage("ba_dispatch"):
+            pending = b.optimize_dispatch(b.local_frames)
+        if frame.status == FrameStatus.FAIL:  # zero global corres
+            b.forget_frame(frame)
+            return None
+        if self.async_pipeline and pending is not None:
+            # BA pull + jump rejection + keyframe admission deferred to
+            # the next run() call (or flush_pipeline)
+            return pending
+        if pending is not None:
+            b.optimize_finish(pending)
+        if frame.status == FrameStatus.FAIL:
+            b.forget_frame(frame)
+            return None
+
+        b.check_and_add_keyframe(frame)
+        return None
+
+    # ------------------------------------------------------------------
+    # main entry (ref run bundlesdf.py:510-632)
+    # ------------------------------------------------------------------
+    def run(self, color, depth, K, id_str, mask=None, occ_mask=None,
+            pose_in_model=np.eye(4)):
+        """@color: (H,W,3) RGB uint8; @depth: (H,W) float32 meters."""
+        # whole-pipeline downscale (ref config_behave.yml
+        # image_down_scale: frames and intrinsics shrink before tracking)
+        down = int(self.cfg_track.get("image_down_scale", 1))
+        if down > 1:
+            H0, W0 = np.asarray(color).shape[:2]
+            size = (W0 // down, H0 // down)
+            color = resize_nearest(color, size)
+            depth = resize_nearest(np.asarray(depth, np.float32), size)
+            if mask is not None:
+                mask = resize_nearest(mask, size)
+            if occ_mask is not None:
+                occ_mask = resize_nearest(occ_mask, size)
+            K = np.asarray(K, np.float64).copy()
+            K[0] *= size[0] / W0
+            K[1] *= size[1] / H0
+
+        if self.K is None:
+            self.K = np.asarray(K, np.float64)
+            if self.SPDLOG >= 1:
+                np.savetxt(os.path.join(self.debug_dir, "cam_K.txt"), self.K)
+
+        if self._stage_timing:
+            self._cur_stages = {}
+            self.stage_stats.append(self._cur_stages)
+        depth = np.asarray(depth, np.float32).copy()
+        with self._stage("preprocess"):
+            percentile = self.cfg_track["depth_processing"]["percentile"]
+            if percentile < 100:
+                valid = (depth >= 0.1) & (np.asarray(mask) > 0)
+                if valid.any():
+                    thres = np.percentile(depth[valid], percentile)
+                    depth[depth >= thres] = 0
+
+            frame = self.make_frame(color, depth, K, id_str, mask, occ_mask,
+                                    pose_in_model)
+        # host feature detection runs now, overlapping the previous frame's
+        # BA on the device (skipped when denoise_cloud may still shrink the
+        # mask — detection must see the final mask)
+        if (hasattr(self.matcher, "_frame_feats")
+                and not self.cfg_track["depth_processing"].get(
+                    "denoise_cloud", False)
+                and int((frame.fg_mask > 0).sum()) >= 100):
+            with self._stage("detect"):
+                self.matcher._frame_feats(frame)
+        with self._stage("ba_finish_prev"):
+            self.flush_pipeline()
+        pending = self.process_new_frame(frame)
+        if pending is not None:
+            self._deferred = (frame, pending)
+        else:
+            with self._stage("finalize"):
+                self._finalize_frame(frame)
+        return frame
+
+    def flush_pipeline(self):
+        """Finish the previous frame's deferred BA: pull optimized poses,
+        apply jump rejection + keyframe admission, write artifacts. Called
+        automatically at the start of the next run() and from
+        on_finish()."""
+        if self._deferred is None:
+            return
+        frame, pending = self._deferred
+        self._deferred = None
+        b = self.bundler
+        b.optimize_finish(pending)
+        if frame.status == FrameStatus.FAIL:
+            b.forget_frame(frame)
+        else:
+            b.check_and_add_keyframe(frame)
+        self._finalize_frame(frame)
+
+    def _finalize_frame(self, frame):
+        """Post-BA per-frame tail, tracker part: count a new keyframe
+        toward the NOF start and write the frame's artifacts (ref
+        bundlesdf.py:546-632)."""
+        if self.bundler.keyframes and self.bundler.keyframes[-1] is frame:
+            self.n_nerf_keyframes += 1
+            if self.n_nerf_keyframes >= self.start_nerf_keyframes:
+                raise NotImplementedError(_NOF_TODO)
+        self.save_newframe_result(frame)
+
+    # ------------------------------------------------------------------
+    # outputs (ref saveNewframeResult Bundler.cpp:959-1111)
+    # ------------------------------------------------------------------
+    def save_newframe_result(self, frame: Frame):
+        if self.SPDLOG < 1:
+            return
+        dd = self.debug_dir
+        for sub in ("ob_in_cam", "color", "color_segmented", "depth",
+                    "depth_filtered", "depth_vis", "normal", "mask"):
+            os.makedirs(os.path.join(dd, sub), exist_ok=True)
+        ob_in_cam = np.linalg.inv(frame.pose_in_model)
+        np.savetxt(os.path.join(dd, "ob_in_cam", f"{frame.id_str}.txt"),
+                   ob_in_cam)
+        # frame status record (ref Bundler.cpp:1087-1095 frame.txt)
+        kf_dir = os.path.join(dd, frame.id_str)
+        os.makedirs(kf_dir, exist_ok=True)
+        with open(os.path.join(kf_dir, "frame.txt"), "w") as f:
+            f.write(f"status: {frame.status.name}\n")
+            if frame.ref_frame_id >= 0:
+                f.write(f"ref_frame_id: {frame.ref_frame_id}\n")
+        self._save_images(frame)
+        # keyframe registry for global refine (ref keyframes.yml)
+        import yaml
+
+        reg = {kf.id_str: {"cam_in_ob": kf.pose_in_model.reshape(-1).tolist(),
+                           "nerfed": bool(kf.nerfed)}
+               for kf in self.bundler.keyframes}
+        with open(os.path.join(kf_dir, "keyframes.yml"), "w") as f:
+            yaml.safe_dump(reg, f)
+
+    def _save_images(self, frame: Frame):
+        import cv2
+
+        dd = self.debug_dir
+        cv2.imwrite(os.path.join(dd, "color", f"{frame.id_str}.png"),
+                    frame.color[..., ::-1])
+        # mask-applied color (ref _color after invalidatePixelsByMask,
+        # Bundler.cpp:1034-1039 color_segmented/)
+        seg = frame.color.copy()
+        seg[frame.fg_mask == 0] = 0
+        cv2.imwrite(os.path.join(dd, "color_segmented",
+                                 f"{frame.id_str}.png"), seg[..., ::-1])
+        cv2.imwrite(os.path.join(dd, "depth", f"{frame.id_str}.png"),
+                    (frame.depth_raw * 1000).astype(np.uint16))
+        cv2.imwrite(os.path.join(dd, "depth_filtered", f"{frame.id_str}.png"),
+                    (frame.depth * 1000).astype(np.uint16))
+        cv2.imwrite(os.path.join(dd, "mask", f"{frame.id_str}.png"),
+                    (frame.fg_mask > 0).astype(np.uint8) * 255)
+        # inverse-depth visualization (ref Bundler.cpp:1044-1055)
+        with np.errstate(divide="ignore"):
+            dv = np.where(frame.depth >= 0.1, 1.0 / frame.depth / 10 * 255, 0)
+        cv2.imwrite(os.path.join(dd, "depth_vis", f"{frame.id_str}.png"),
+                    np.clip(dv, 0, 255).astype(np.uint8))
+        # normal map packed to [0,255] rgb (ref Bundler.cpp:1016-1032)
+        n = frame.normal_map
+        norm = np.linalg.norm(n, axis=-1, keepdims=True)
+        n = np.where((frame.depth[..., None] >= 0.1) & (norm > 1e-8),
+                     n / np.maximum(norm, 1e-8), 0.0)
+        n_img = ((n + 1) / 2 * 255).astype(np.uint8)
+        cv2.imwrite(os.path.join(dd, "normal", f"{frame.id_str}.png"),
+                    n_img[..., ::-1])
+
+    # ------------------------------------------------------------------
+    def on_finish(self):
+        """Final pipeline flush (ref on_finish bundlesdf.py:324-338)."""
+        self.flush_pipeline()

@@ -1,10 +1,15 @@
-"""SE(3)/SO(3) math in torch (the subset the NOF step needs).
+"""SE(3)/SO(3) math in torch, with numpy twins for host-side pose math.
 
-Port of `bundlesdf_tpu/utils/se3.py:22-78` plus its numpy twin
-`se3_exp_np` (`:252`). Convention: `se3_exp(tau)` with tau = (trans[3],
-rot[3]) returns the row-major 4x4 T = [[R, V@t],[0,1]] (the reference
-PoseArray's pytorch3d `se3_exp_map(...).permute(0,2,1)`,
+Port of `bundlesdf_tpu/utils/se3.py`. Convention: `se3_exp(tau)` with
+tau = (trans[3], rot[3]) returns the row-major 4x4 T = [[R, V@t],[0,1]]
+(the reference PoseArray's pytorch3d `se3_exp_map(...).permute(0,2,1)`,
 nerf_helpers.py:150). All functions take a batch in the leading axes.
+
+`kabsch` is the exact weighted SVD solve with the reflection fix (the
+reference's Umeyama, Utils.cpp:360-404); the JAX package's Horn
+quaternion + power iteration existed only because SVD and eigh were host
+calls on its TPU stack. `kabsch_np` is the JAX package's numpy twin
+(Horn via an exact eigh), kept as the independent reference.
 """
 from __future__ import annotations
 
@@ -36,6 +41,20 @@ def so3_exp(w):
     return eye + s[..., None, None] * W + c[..., None, None] * W2
 
 
+def so3_log(R):
+    """(...,3,3) -> (...,3) axis-angle. Stable away from pi."""
+    cos = (R.diagonal(dim1=-2, dim2=-1).sum(-1) - 1.0) / 2.0
+    cos = torch.clamp(cos, -1.0 + 1e-7, 1.0 - 1e-7)
+    theta = torch.arccos(cos)
+    w = torch.stack([
+        R[..., 2, 1] - R[..., 1, 2],
+        R[..., 0, 2] - R[..., 2, 0],
+        R[..., 1, 0] - R[..., 0, 1],
+    ], dim=-1)
+    scale = theta / (2.0 * torch.sin(theta) + _EPS)
+    return w * scale[..., None]
+
+
 def _so3_left_jacobian(w):
     theta2 = torch.sum(w * w, dim=-1)
     theta = torch.sqrt(theta2 + _EPS * _EPS)
@@ -57,6 +76,127 @@ def se3_exp(tau):
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=tau.dtype,
                           device=tau.device).expand(top[..., :1, :].shape)
     return torch.cat([top, bottom], dim=-2)
+
+
+def se3_log(T):
+    """(...,4,4) -> (...,6) (trans, rot)."""
+    w = so3_log(T[..., :3, :3])
+    V = _so3_left_jacobian(w)
+    t = torch.linalg.solve_ex(V, T[..., :3, 3:4])[0][..., 0]
+    return torch.cat([t, w], dim=-1)
+
+
+def geodesic_distance(R1, R2):
+    """Rotation geodesic distance in radians (ref Utils.py:201-205); takes
+    torch tensors or numpy arrays."""
+    if isinstance(R1, np.ndarray):
+        cos = (np.trace(R1 @ np.swapaxes(R2, -1, -2), axis1=-2, axis2=-1)
+               - 1.0) / 2.0
+        return np.arccos(np.clip(cos, -1.0, 1.0))
+    cos = ((R1 @ R2.transpose(-1, -2)).diagonal(dim1=-2, dim2=-1).sum(-1)
+           - 1.0) / 2.0
+    return torch.arccos(torch.clamp(cos, -1.0, 1.0))
+
+
+def rot_geodesic_ignore_cam_z(R1, R2):
+    """Geodesic distance of R2 @ R1^T with its rotation about camera Z
+    zeroed (ref Utils.cpp:89-99): the angle of the relative rotation,
+    or 0 when its axis is (near) pure Z."""
+    R = R2 @ R1.transpose(-1, -2)
+    w = so3_log(R)
+    angle = torch.linalg.norm(w, dim=-1)
+    axis = w / (angle[..., None] + _EPS)
+    axis = torch.cat([axis[..., :2], torch.zeros_like(axis[..., 2:])], -1)
+    norm = torch.linalg.norm(axis, dim=-1)
+    axis = axis / (norm[..., None] + _EPS)
+    R_out = so3_exp(axis * angle[..., None])
+    eye = torch.eye(3, dtype=R_out.dtype, device=R_out.device)
+    return geodesic_distance(R_out, eye) * (norm > 1e-6)
+
+
+def kabsch(src, dst, weights=None):
+    """Weighted least-squares rigid transform T with T @ src ~= dst.
+
+    @src, @dst: (...,N,3); @weights: optional (...,N) nonnegative.
+    Returns (...,4,4). Exact SVD of the 3x3 cross-covariance with the
+    reflection fix R = V diag(1,1,sign det(V U^T)) U^T."""
+    if weights is None:
+        weights = torch.ones(src.shape[:-1], dtype=src.dtype,
+                             device=src.device)
+    w = (weights / (weights.sum(-1, keepdim=True) + _EPS))[..., None]
+    mean1 = (src * w).sum(-2)
+    mean2 = (dst * w).sum(-2)
+    P = src - mean1[..., None, :]
+    Q = dst - mean2[..., None, :]
+    S = (P * w).transpose(-1, -2) @ Q          # sum_k w_k p_k q_k^T
+    U, _, Vh = torch.linalg.svd(S)
+    V = Vh.transpose(-1, -2)
+    d = torch.sign(torch.linalg.det(V @ U.transpose(-1, -2)))
+    d = torch.where(d == 0, torch.ones_like(d), d)
+    fix = torch.ones(S.shape[:-1], dtype=S.dtype, device=S.device)
+    fix = torch.cat([fix[..., :2], d[..., None]], -1)
+    R = (V * fix[..., None, :]) @ U.transpose(-1, -2)
+    t = mean2 - (R @ mean1[..., None])[..., 0]
+    T = torch.zeros(S.shape[:-2] + (4, 4), dtype=S.dtype, device=S.device)
+    T[..., :3, :3] = R
+    T[..., :3, 3] = t
+    T[..., 3, 3] = 1.0
+    return T
+
+
+def rot_geodesic_ignore_cam_z_np(R1, R2):
+    """NumPy twin of rot_geodesic_ignore_cam_z (ref Utils.cpp:89-99)."""
+    from scipy.spatial.transform import Rotation
+
+    R = np.asarray(R2) @ np.asarray(R1).T
+    w = Rotation.from_matrix(R).as_rotvec()
+    angle = np.linalg.norm(w)
+    if angle < 1e-12:
+        return 0.0
+    axis = w / angle
+    axis[2] = 0.0
+    n = np.linalg.norm(axis)
+    if n < 1e-6:  # pure cam-Z roll -> distance 0
+        return 0.0
+    return float(angle)
+
+
+def kabsch_np(src, dst, weights=None):
+    """NumPy rigid fit (Horn quaternion via an exact eigh of the 4x4), the
+    JAX package's host twin; the reference `kabsch` is held against it."""
+    src = np.asarray(src, np.float64)
+    dst = np.asarray(dst, np.float64)
+    if weights is None:
+        weights = np.ones(src.shape[0])
+    w = (weights / (weights.sum() + _EPS))[:, None]
+    mean1 = (src * w).sum(axis=0)
+    mean2 = (dst * w).sum(axis=0)
+    P = src - mean1
+    Q = dst - mean2
+    S = (P * w).T @ Q
+    sxx, sxy, sxz = S[0]
+    syx, syy, syz = S[1]
+    szx, szy, szz = S[2]
+    N = np.array([
+        [sxx + syy + szz, syz - szy, szx - sxz, sxy - syx],
+        [syz - szy, sxx - syy - szz, sxy + syx, szx + sxz],
+        [szx - sxz, sxy + syx, -sxx + syy - szz, syz + szy],
+        [sxy - syx, szx + sxz, syz + szy, -sxx - syy + szz],
+    ])
+    _, vecs = np.linalg.eigh(N)
+    qw, qx, qy, qz = vecs[:, -1]
+    R = np.array([
+        [1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - qw * qz),
+         2 * (qx * qz + qw * qy)],
+        [2 * (qx * qy + qw * qz), 1 - 2 * (qx * qx + qz * qz),
+         2 * (qy * qz - qw * qx)],
+        [2 * (qx * qz - qw * qy), 2 * (qy * qz + qw * qx),
+         1 - 2 * (qx * qx + qy * qy)],
+    ])
+    T = np.eye(4)
+    T[:3, :3] = R
+    T[:3, 3] = mean2 - R @ mean1
+    return T
 
 
 def _hat_np(w):

@@ -12,12 +12,21 @@ Phases, one printed line each (or a few), any failure exits non-zero:
      with PyTorch's own scatter; one small training step on the card vs
      the same step on the CPU (the CPU path is the one held against the
      JAX package by tests/test_torch_*.py);
-  5. the main path: `NofRunner` at the online workload (bench.py's
+  5. the NOF main path: `NofRunner` at the online workload (bench.py's
      configuration) trains 10 + 50 steps; steps/s, memory, losses, and
      the kernel's launch count;
-  6. a JSON line of per-kernel results, then the final status line.
---profile adds a torch.profiler table of 5 steps.
-Needs a CUDA card and nvcc; refuses to run on the CPU.
+  6. tracker components on the card vs the CPU at the steady 480x640
+     shapes: the depth chain into the pool, `orb_lift_ransac_slots` (16
+     pairs, 2048 features, injected RANSAC draws), `bundle_adjust_pooled`
+     (10 frames, 4096 points, factor 4, hybrid entry), with times;
+  7. the tracker main path: tracker-only `BundleSdf.run` over the first 30
+     frames of the 120-frame easy orbit at 480x640 (default track config,
+     ORB features replayed from tests/fixtures/tracker_orb_30f.npz),
+     frames/s, stage times, memory, FAILs, keyframes, ADD/ADD-S against
+     the ground truth and the stored JAX trajectory's;
+  8. a JSON line of per-kernel results, then the final status line.
+--profile adds torch.profiler tables of 5 NOF steps and of 5 tracked
+frames. Needs a CUDA card and nvcc; refuses to run on the CPU.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 
@@ -268,6 +278,319 @@ def phase_profile(runner, n_steps=5):
           f"{table}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the tracker (phases 6-7)
+# ---------------------------------------------------------------------------
+FIXTURE = os.path.join(ROOT, "tests", "fixtures", "tracker_orb_30f.npz")
+N_TRACK = 30
+# stated tolerances of the card-vs-CPU component checks
+MAP_TOL_M = 1e-4        # depth / xyz maps, meters
+NORMAL_TOL = 1e-3       # unit normals: cross products of one-pixel xyz
+#                         differences amplify depth rounding ~1/spacing
+MAX_FLIP = 1e-3         # share of pixels / matches whose gate may flip
+POSE_TOL = 1e-4         # BA poses: radians and meters
+
+
+def tracker_inputs():
+    """The 30 card frames (first 30 of the 120-frame easy orbit) and the
+    replayed ORB features + JAX trajectory of the fixture."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from synthetic import cube_orbit_sequence
+    t0 = time.perf_counter()
+    seq = cube_orbit_sequence(n_frames=N_TRACK, H=480, W=640, radius=0.45,
+                              obj_size=0.08,
+                              full_angle=2 * np.pi * N_TRACK / 120,
+                              noise=0.002, seed=0)
+    fx = dict(np.load(FIXTURE))
+    offs = np.concatenate([[0], np.cumsum(fx["counts"])])
+    feats = {seq["id_strs"][i]: (fx["uv"][offs[i]:offs[i + 1]],
+                                 fx["des"][offs[i]:offs[i + 1]])
+             for i in range(N_TRACK)}
+    print(f"tracker inputs: {N_TRACK} frames 480x640 generated in "
+          f"{time.perf_counter() - t0:.2f} s, {int(fx['counts'].min())}-"
+          f"{int(fx['counts'].max())} ORB features a frame", flush=True)
+    return seq, feats, fx
+
+
+def _angle(Ra, Rb):
+    """Rotation angle between float32-rounded rotations: ||Ra - Rb||_F /
+    sqrt(2) (arccos of the trace loses ~1e-4 rad to rounding there)."""
+    return np.linalg.norm(Ra - Rb, axis=(1, 2)) / np.sqrt(2)
+
+
+def phase_tracker_components(seq, feats):
+    """Each tracker program on the card against the same call on the CPU,
+    from the same inputs."""
+    from bundlesdf_tpu_torch.config import default_track_config
+    from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
+    from bundlesdf_tpu_torch.tracker.ba import BAConfig, bundle_adjust_pooled
+    from bundlesdf_tpu_torch.tracker.pool import (FramePool,
+                                                  orb_lift_ransac_slots,
+                                                  preprocess_into_pool)
+    from bundlesdf_tpu_torch.tracker.ransac import draw_samples
+    cfg = default_track_config()
+    dp = cfg["depth_processing"]
+    n_fr = 10
+    pools = {d: FramePool(480, 640, cap=n_fr, device=d)
+             for d in ("cuda", "cpu")}
+    # depth chain into the pool: every frame on both devices
+    flips = worst = worst_n = 0.0
+    for i in range(n_fr):
+        for pool in pools.values():
+            pool.insert_preprocessed(i, seq["depths"][i], seq["K"],
+                                     seq["masks"][i], dp)
+        g, c = pools["cuda"], pools["cpu"]
+        s = g.slot_of[i]
+        vg, vc = g.valids[s].cpu(), c.valids[s]
+        flips = max(flips, float((vg != vc).float().mean()))
+        both = vg & vc
+        for a, b in ((g.depths, c.depths), (g.xyzs, c.xyzs)):
+            worst = max(worst, float((a[s].cpu() - b[s])[both].abs().max()))
+        worst_n = max(worst_n, float((g.nrms[s].cpu()
+                                      - c.nrms[s])[both].abs().max()))
+    if flips > MAX_FLIP or worst > MAP_TOL_M or worst_n > NORMAL_TOL:
+        raise AssertionError(f"depth chain cuda vs cpu: maps {worst:.3e} m, "
+                             f"normals {worst_n:.3e}, valid flips {flips}")
+    g = pools["cuda"]
+    # timed: frame 0 rewritten into its own slot (the same values again)
+    dep = torch.as_tensor(seq["depths"][0], device="cuda")
+    Kc = torch.as_tensor(seq["K"], dtype=torch.float32, device="cuda")
+    mc = torch.as_tensor(seq["masks"][0], device="cuda")
+    ms_pre = _cuda_ms(lambda: preprocess_into_pool(
+        *g.tensors, g.slot_of[0], dep, Kc, mc))
+    print(f"tracker depth chain 480x640 cuda vs cpu: maps max err "
+          f"{worst:.3e} m, normals {worst_n:.3e}, valid flips {flips:.2e}; "
+          f"{ms_pre:.3f} ms a frame on the card", flush=True)
+    # the CPU pool takes the card's maps, so the programs below start from
+    # identical inputs
+    c = pools["cpu"]
+    for a, b in zip(c.tensors, g.tensors):
+        a.copy_(b.cpu())
+
+    # fused match + lift + RANSAC: 16 pairs, injected draws
+    pairs = [(i, j) for i in range(1, n_fr) for j in (i - 1, i - 2)
+             if j >= 0][:16]
+    orb = OrbMatcher(detector=lambda f: feats[f.id_str])
+    fr = [type("F", (), {"id": i, "id_str": seq["id_strs"][i]})()
+          for i in range(n_fr)]
+    ent = [orb._frame_feats(f) for f in fr]
+    T_gt = seq["cam_in_obs"].astype(np.float32)
+    caps = np.array([[0.02, np.deg2rad(30)] if a == b + 1 else [999, np.pi]
+                     for a, b in pairs], np.float32)
+    host = dict(nA=[len(ent[a][0]) for a, _ in pairs],
+                nB=[len(ent[b][0]) for _, b in pairs],
+                slots_a=[g.slot_of[a] for a, _ in pairs],
+                slots_b=[g.slot_of[b] for _, b in pairs],
+                TA=T_gt[[a for a, _ in pairs]], TB=T_gt[[b for _, b in pairs]],
+                cap_t=caps[:, 0], cap_r=caps[:, 1])
+    st = dict(seed=0, inlier_dist=0.005,
+              cos_normal_angle=float(np.cos(np.deg2rad(30))), ratio=0.75,
+              nbits=256, m_cap=1024, n_trials=2000)
+
+    def args(dev, pool):
+        a = {k: torch.as_tensor(np.asarray(v), device=dev)
+             for k, v in host.items()}
+        a.update(bitsA=torch.stack([ent[i][2] for i, _ in pairs]).to(dev),
+                 bitsB=torch.stack([ent[j][2] for _, j in pairs]).to(dev),
+                 uvfA=torch.stack([ent[i][3] for i, _ in pairs]).to(dev),
+                 uvfB=torch.stack([ent[j][3] for _, j in pairs]).to(dev))
+        return (pool.xyzs, pool.nrms), a
+
+    (xc, nc), ac = args("cpu", c)
+    first = orb_lift_ransac_slots(xc, nc, **ac, **st)
+    idx = draw_samples(first["ok"], 2000, seed=7)
+    res = {}
+    for dev, pool in (("cuda", g), ("cpu", c)):
+        (x, n), a = args(dev, pool)
+        res[dev] = {k: v.cpu() for k, v in orb_lift_ransac_slots(
+            x, n, **a, **st, sample_idx=idx.to(dev)).items()}
+    rg, rc = res["cuda"], res["cpu"]
+    for k in ("uvA", "uvB", "conf", "n_raw", "ok"):
+        if not torch.equal(rg[k], rc[k]):
+            raise AssertionError(f"orb_lift_ransac_slots {k}: cuda != cpu")
+    lift_err = float((rg["pA_cam"] - rc["pA_cam"]).abs().max())
+    n_ok = int(rc["ok"].sum())
+    mflip = int((rg["inlier_mask"] != rc["inlier_mask"]).sum())
+    pairs_same = int((rg["inlier_mask"] == rc["inlier_mask"]).all(1).sum())
+    if lift_err > 0 or mflip > MAX_FLIP * n_ok or pairs_same < len(pairs) - 1:
+        raise AssertionError(f"orb_lift_ransac_slots: lift err {lift_err}, "
+                             f"{mflip} inlier flips of {n_ok}, "
+                             f"{pairs_same}/{len(pairs)} pairs identical")
+    (xg, ng), ag = args("cuda", g)
+    ms_orb = _cuda_ms(lambda: orb_lift_ransac_slots(
+        xg, ng, **ag, **st, k_pull=256), reps=5)
+    print(f"tracker orb_lift_ransac_slots P={len(pairs)} F=2048 M=1024 "
+          f"T=2000 cuda vs cpu: match indices + lifts identical, inlier "
+          f"masks {pairs_same}/{len(pairs)} pairs identical ({mflip} flips "
+          f"of {n_ok} matches), {int(rc['inlier_mask'].sum())} inliers; "
+          f"{ms_orb:.3f} ms a call on the card", flush=True)
+
+    # bundle adjustment: 10 frames, D=4096 at factor 4, hybrid entry
+    rng = np.random.default_rng(2)
+    poses0 = T_gt[:n_fr].copy()
+    poses0[1:, :3, 3] += rng.normal(0, 0.003, (n_fr - 1, 3))
+    pts = rng.uniform(-0.06, 0.06, (40, 3))
+    ci, cj, pi, pj = [], [], [], []
+    for a in range(n_fr - 1):
+        for b in (a + 1,):
+            Ta, Tb = (np.linalg.inv(seq["cam_in_obs"][k]) for k in (a, b))
+            ci += [a] * len(pts)
+            cj += [b] * len(pts)
+            pi.append(pts @ Ta[:3, :3].T + Ta[:3, 3])
+            pj.append(pts @ Tb[:3, :3].T + Tb[:3, 3])
+    D = 4096
+    src_idx = np.zeros((n_fr, D), np.int64)
+    src_valid = np.zeros((n_fr, D), bool)
+    for k in range(n_fr):
+        f = np.nonzero(seq["masks"][k][::4, ::4].reshape(-1) > 0)[0]
+        f = f[np.linspace(0, len(f) - 1, min(len(f), D)).astype(int)]
+        src_idx[k, :len(f)] = f
+        src_valid[k, :len(f)] = True
+    pair_ij = np.array([(i, j) for i in range(n_fr)
+                        for j in range(i + 1, n_fr)], np.int64)
+    rows_w = np.nonzero((pair_ij == n_fr - 1).any(1))[0]
+    host_ba = dict(slots=[g.slot_of[k] for k in range(n_fr)],
+                   slot_live=np.ones(n_fr, np.float32), poses0=poses0,
+                   K=seq["K"].astype(np.float32), pair_ij=pair_ij,
+                   corr_i=np.array(ci), corr_j=np.array(cj),
+                   corr_pi=np.concatenate(pi).astype(np.float32),
+                   corr_pj=np.concatenate(pj).astype(np.float32),
+                   corr_valid=np.ones(len(ci), np.float32),
+                   update_flags=np.r_[0, np.ones(n_fr - 1)].astype(np.float32),
+                   src_idx=src_idx, src_valid=src_valid,
+                   pair_valid=np.ones(len(pair_ij), np.float32),
+                   pair_ij_w=pair_ij[rows_w], pair_w_dst=rows_w)
+    cfg_ba = BAConfig()          # hybrid entry, bf16 scoring, early-out
+
+    def ba(dev, pool):
+        a = {k: torch.as_tensor(np.asarray(v), device=dev)
+             for k, v in host_ba.items()}
+        return bundle_adjust_pooled(pool.xyzs_h, pool.nrms_h, **a, factor=4,
+                                    cfg=cfg_ba, pre_decim=2)
+
+    pg, pc = ba("cuda", g).cpu().double().numpy(), ba("cpu", c).double(
+    ).numpy()
+    dt = float(np.abs(pg[:, :3, 3] - pc[:, :3, 3]).max())
+    dr = float(_angle(pg[:, :3, :3], pc[:, :3, :3]).max())
+    gt_t = seq["cam_in_obs"][:n_fr, :3, 3]
+    err0 = float(np.linalg.norm(poses0[:, :3, 3] - gt_t, axis=1).mean())
+    gt_err = float(np.linalg.norm(pg[:, :3, 3] - gt_t, axis=1).mean())
+    if dt > POSE_TOL or dr > POSE_TOL or not gt_err < err0:
+        raise AssertionError(f"bundle_adjust_pooled cuda vs cpu: {dt:.3e} m "
+                             f"{dr:.3e} rad; error to GT {err0:.3e} -> "
+                             f"{gt_err:.3e} m")
+    ms_ba = _cuda_ms(lambda: ba("cuda", g), reps=5)
+    print(f"tracker bundle_adjust_pooled N={n_fr} P={len(pair_ij)} "
+          f"Pw={len(rows_w)} D={D} factor 4 cuda vs cpu: poses {dt:.3e} m "
+          f"{dr:.3e} rad; mean translation error to GT {err0 * 1e3:.3f} -> "
+          f"{gt_err * 1e3:.3f} mm; {ms_ba:.3f} ms a call on the card",
+          flush=True)
+    return {"preprocess_ms": ms_pre, "orb_lift_ransac_ms": ms_orb,
+            "bundle_adjust_ms": ms_ba}
+
+
+def _track(seq, feats, n_frames, profile_from=None):
+    """Tracker-only BundleSdf over @n_frames frames on the card. Returns
+    (tracker, frames, seconds from frame 5 to the end)."""
+    from bundlesdf_tpu_torch.bundlesdf import BundleSdf
+    from bundlesdf_tpu_torch.config import default_track_config
+    from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
+    cfg = default_track_config()
+    cfg.update(stage_timing=True, SPDLOG=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg["debug_dir"] = tmp
+        matcher = OrbMatcher(device="cuda", detector=lambda f: feats[f.id_str])
+        t = BundleSdf(cfg_track=cfg, start_nerf_keyframes=10 ** 9,
+                      matcher=matcher, device="cuda")
+        frames, prof = [], None
+        for i in range(n_frames):
+            if i == 5:
+                torch.cuda.synchronize()
+                t5 = time.perf_counter()
+            if i == profile_from:
+                from torch.profiler import ProfilerActivity, profile
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.__enter__()
+                tp = time.perf_counter()
+            frames.append(t.run(seq["colors"][i], seq["depths"][i].copy(),
+                                seq["K"], seq["id_strs"][i],
+                                mask=seq["masks"][i]))
+        t.on_finish()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t5
+        if prof is not None:
+            wall = time.perf_counter() - tp
+            prof.__exit__(None, None, None)
+            return t, frames, dt, (prof, wall)
+    return t, frames, dt, None
+
+
+def phase_tracker_main(seq, feats, fx):
+    from bundlesdf_tpu_torch.eval.metrics import add_err, adi_err
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t, frames, dt, _ = _track(seq, feats, N_TRACK)
+    peak = torch.cuda.max_memory_allocated()
+    status = np.array([f.status.value for f in frames])
+    cam_in_ob = np.array([f.pose_in_model for f in frames])
+    pred = np.linalg.inv(cam_in_ob)
+    gt = np.linalg.inv(seq["cam_in_obs"])
+    pred = pred @ np.linalg.inv(pred[0]) @ gt[0]
+    mp = fx["model_pts"]
+    add = np.array([add_err(p, q, mp) for p, q in zip(pred, gt)])
+    adds = np.array([adi_err(p, q, mp) for p, q in zip(pred, gt)])
+    jax_add, jax_adds = float(fx["jax_add"].mean()), float(fx["jax_adds"].mean())
+    stages = {}
+    for st in t.stage_stats[5:]:
+        for k, v in st.items():
+            stages.setdefault(k, []).append(v * 1e3)
+    med = {k: float(np.median(v)) for k, v in sorted(stages.items())}
+    n = N_TRACK - 5
+    print(f"tracker main path: {N_TRACK} frames 480x640, frames 5-29 "
+          f"{n / dt:.3f} frames/s {1e3 * dt / n:.3f} ms/frame; median stage "
+          f"ms {json.dumps({k: round(v, 3) for k, v in med.items()})}; peak "
+          f"{peak / 2 ** 30:.3f} GiB; FAIL {int((status == 0).sum())} "
+          f"(JAX {int((fx['jax_status'] == 0).sum())}); keyframes "
+          f"{len(t.bundler.keyframes)} (JAX {len(fx['jax_keyframes'])}); "
+          f"mean ADD {add.mean() * 1e3:.4f} mm ADD-S {adds.mean() * 1e3:.4f} "
+          f"mm; JAX mean ADD {jax_add * 1e3:.4f} mm ADD-S "
+          f"{jax_adds * 1e3:.4f} mm", flush=True)
+    new_fail = np.nonzero((status == 0) & (fx["jax_status"] != 0))[0]
+    if len(new_fail):
+        raise AssertionError(f"tracker: frames {new_fail.tolist()} FAIL that "
+                             f"did not FAIL in the JAX run")
+    if not np.isfinite(cam_in_ob).all():
+        raise AssertionError("tracker: non-finite poses")
+    if add.mean() > max(2 * jax_add, jax_add + 1e-3):
+        raise AssertionError(f"tracker: mean ADD {add.mean()} m above "
+                             f"max(2 x JAX, JAX + 1 mm), JAX {jax_add} m")
+    return {"frames_per_s": n / dt, "ms_per_frame": 1e3 * dt / n,
+            "stage_ms": med, "peak_gib": peak / 2 ** 30,
+            "add_mm": add.mean() * 1e3, "adds_mm": adds.mean() * 1e3}
+
+
+def phase_tracker_profile(seq, feats):
+    _, _, _, (prof, wall) = _track(seq, feats, 10, profile_from=5)
+    from torch.autograd import DeviceType
+    ka = prof.key_averages()
+    # device-side events only, as the table's own "Self CUDA time total"
+    dev_us = sum(e.self_device_time_total for e in ka
+                 if e.device_type == DeviceType.CUDA
+                 and not e.is_user_annotation)
+    for e in ka:
+        if e.key.startswith("stage:"):
+            print(f"{e.key} ({e.device_type.name} event): calls {e.count}, "
+                  f"host {e.cpu_time_total / 1e3:.3f} ms, device "
+                  f"{e.device_time_total / 1e3:.3f} ms", flush=True)
+    print(f"profile of 5 tracked frames (5-9), "
+          f"{torch.cuda.get_device_name(0)}: wall {wall * 1e3:.3f} ms, "
+          f"device-busy {dev_us / 1e3:.3f} ms ({dev_us / 1e4 / wall:.1f} % "
+          f"of wall)\n"
+          f"{ka.table(sort_by='self_cuda_time_total', row_limit=40)}",
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this smoke run "
@@ -284,6 +607,13 @@ def main():
     launches = phase_main(runner)
     if "--profile" in sys.argv[1:]:
         phase_profile(runner)
+    del runner
+    torch.cuda.empty_cache()
+    seq, feats, fx = tracker_inputs()
+    phase_tracker_components(seq, feats)
+    phase_tracker_main(seq, feats, fx)
+    if "--profile" in sys.argv[1:]:
+        phase_tracker_profile(seq, feats)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     main_case = scatter["c2_bf16"]

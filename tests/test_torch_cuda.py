@@ -1,7 +1,9 @@
-"""The port's CUDA kernel on the card: `scatter_rows` against its plain
+"""The port on the card: the `scatter_rows` CUDA kernel against its plain
 PyTorch version, the hash-grid gradient through it against PyTorch's own
-gather backward, and the wrapper's input checks. Every test needs a CUDA
-card and skips without one.
+gather backward, the wrapper's input checks, and the tracker programs
+(depth chain into the pool, fused ORB match + lift + RANSAC, bundle
+adjustment) on the card against the same calls on the CPU, at small
+shapes. Every test needs a CUDA card and skips without one.
 
 This file imports no jax, so it also runs where jax is not installed:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -20,8 +22,9 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the scatter_rows kernel has no CPU "
-                    "mode")
+        pytest.skip("needs a CUDA card: these tests hold programs on the "
+                    "card against the CPU, and the scatter_rows kernel has "
+                    "no CPU mode")
     return torch.device("cuda")
 
 
@@ -89,3 +92,136 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         scatter_rows(torch.ones((2, 8), device=cuda_device).t(), r, 4)
     with pytest.raises(ValueError):
         scatter_rows(v, r.cpu(), 4)
+
+
+# ---------------------------------------------------------------------------
+# tracker programs, card vs CPU
+# ---------------------------------------------------------------------------
+
+def _orbit(n=4, H=120, W=160):
+    from synthetic import cube_orbit_sequence
+    return cube_orbit_sequence(n_frames=n, H=H, W=W, radius=0.45,
+                               obj_size=0.08, full_angle=0.4, noise=0.002)
+
+
+def _pools(seq, n):
+    from bundlesdf_tpu_torch.config import default_track_config
+    from bundlesdf_tpu_torch.tracker.pool import FramePool
+    dp = default_track_config()["depth_processing"]
+    H, W = seq["depths"].shape[1:]
+    pools = {d: FramePool(H, W, cap=n, device=d) for d in ("cuda", "cpu")}
+    for i in range(n):
+        for p in pools.values():
+            p.insert_preprocessed(i, seq["depths"][i], seq["K"],
+                                  seq["masks"][i], dp)
+    return pools
+
+
+def test_depth_chain_into_pool_card_vs_cpu(cuda_device):
+    """Maps within 1e-4 m (normals 1e-3: cross products of one-pixel xyz
+    differences amplify depth rounding), validity flips <= 0.1 %."""
+    seq = _orbit()
+    pools = _pools(seq, 4)
+    g, c = pools["cuda"], pools["cpu"]
+    assert g.slot_of == c.slot_of
+    for i, s in g.slot_of.items():
+        vg, vc = g.valids[s].cpu(), c.valids[s]
+        assert (vg != vc).float().mean() <= 1e-3
+        both = vg & vc
+        for a, b, tol in ((g.depths, c.depths, 1e-4), (g.xyzs, c.xyzs, 1e-4),
+                          (g.nrms, c.nrms, 1e-3)):
+            assert (a[s].cpu() - b[s])[both].abs().max() <= tol
+        torch.testing.assert_close(g.xyzs_h[s].cpu(), g.xyzs[s, ::2, ::2]
+                                   .cpu(), rtol=0, atol=0)
+
+
+def test_ransac_and_ba_card_vs_cpu(cuda_device):
+    """Lift + RANSAC with injected draws: lifts identical, inlier masks
+    identical on all but boundary matches (<= 0.1 %); BA poses within
+    1e-4 m / 1e-4 rad."""
+    from bundlesdf_tpu_torch.tracker.ba import BAConfig, bundle_adjust_pooled
+    from bundlesdf_tpu_torch.tracker.pool import lift_ransac_slots
+    from bundlesdf_tpu_torch.tracker.ransac import draw_samples
+    seq = _orbit()
+    pools = _pools(seq, 4)
+    g, c = pools["cuda"], pools["cpu"]
+    for a, b in zip(c.tensors, g.tensors):
+        a.copy_(b.cpu())
+    rng = np.random.default_rng(0)
+    pairs = [(1, 0), (2, 1), (3, 2), (3, 1)]
+    d1 = c.depths[c.slot_of[1]].numpy()
+    vs, us = np.nonzero(d1 > 0.1)
+    sel = rng.choice(len(vs), 300, replace=False)
+    # matches by reprojection of frame B's object pixels into frame A
+    uvA, uvB = [], []
+    for a, b in pairs:
+        p_b = c.xyzs[c.slot_of[b]].numpy()[vs[sel], us[sel]]
+        TB, TA = seq["cam_in_obs"][b], seq["cam_in_obs"][a]
+        p_a = (p_b @ TB[:3, :3].T + TB[:3, 3] - TA[:3, 3]) @ TA[:3, :3]
+        K = seq["K"]
+        ua = np.round(p_a[:, 0] / p_a[:, 2] * K[0, 0] + K[0, 2])
+        va = np.round(p_a[:, 1] / p_a[:, 2] * K[1, 1] + K[1, 2])
+        uvA.append(np.clip(np.stack([ua, va], -1), 0, [159, 119]))
+        uvB.append(np.stack([us[sel], vs[sel]], -1))
+    host = dict(slots_a=[c.slot_of[a] for a, _ in pairs],
+                slots_b=[c.slot_of[b] for _, b in pairs],
+                uvA=np.array(uvA, np.int32), uvB=np.array(uvB, np.int32),
+                valid=np.ones((4, 300), bool),
+                conf=np.ones((4, 300), np.float32),
+                TA=seq["cam_in_obs"][[a for a, _ in pairs]].astype(np.float32),
+                TB=seq["cam_in_obs"][[b for _, b in pairs]].astype(np.float32),
+                cap_t=np.full(4, 0.05, np.float32),
+                cap_r=np.full(4, 0.5, np.float32))
+
+    def lift(dev, pool, idx):
+        a = {k: torch.as_tensor(np.asarray(v), device=dev)
+             for k, v in host.items()}
+        return lift_ransac_slots(pool.xyzs, pool.nrms, **a, seed=0,
+                                 inlier_dist=0.005, cos_normal_angle=0.866,
+                                 n_trials=500, sample_idx=idx)
+
+    first = lift("cpu", c, None)
+    idx = draw_samples(first["ok"], 500, seed=3)
+    rg = {k: v.cpu() for k, v in lift("cuda", g, idx.cuda()).items()}
+    rc = lift("cpu", c, idx)
+    for k in ("pA_cam", "pB_cam", "ok"):
+        assert torch.equal(rg[k], rc[k]), k
+    flips = (rg["inlier_mask"] != rc["inlier_mask"]).sum()
+    assert flips <= 1e-3 * rc["ok"].sum()
+    assert (rc["inlier_mask"].sum(1) > 100).all()
+
+    N = 4
+    poses0 = seq["cam_in_obs"].astype(np.float32).copy()
+    poses0[1:, :3, 3] += rng.normal(0, 0.003, (N - 1, 3))
+    D = 1024
+    src_idx = np.zeros((N, D), np.int64)
+    src_valid = np.zeros((N, D), bool)
+    for k in range(N):
+        f = np.nonzero(seq["masks"][k][::4, ::4].reshape(-1) > 0)[0][:D]
+        src_idx[k, :len(f)] = f
+        src_valid[k, :len(f)] = True
+    pair_ij = np.array([(i, j) for i in range(N) for j in range(i + 1, N)])
+    rows_w = np.nonzero((pair_ij == N - 1).any(1))[0]
+    keep = rc["inlier_mask"][0].numpy()
+    ba_host = dict(slots=[c.slot_of[k] for k in range(N)],
+                   slot_live=np.ones(N, np.float32), poses0=poses0,
+                   K=seq["K"].astype(np.float32), pair_ij=pair_ij,
+                   corr_i=np.full(keep.sum(), 1), corr_j=np.zeros(keep.sum()),
+                   corr_pi=rc["pA_cam"][0].numpy()[keep],
+                   corr_pj=rc["pB_cam"][0].numpy()[keep],
+                   corr_valid=np.ones(keep.sum(), np.float32),
+                   update_flags=np.array([0, 1, 1, 1], np.float32),
+                   src_idx=src_idx, src_valid=src_valid,
+                   pair_ij_w=pair_ij[rows_w], pair_w_dst=rows_w)
+
+    def ba(dev, pool):
+        a = {k: torch.as_tensor(np.asarray(v), device=dev)
+             for k, v in ba_host.items()}
+        a["corr_i"], a["corr_j"] = a["corr_i"].long(), a["corr_j"].long()
+        return bundle_adjust_pooled(pool.xyzs_h, pool.nrms_h, **a, factor=4,
+                                    cfg=BAConfig(), pre_decim=2)
+
+    pg, pc = ba("cuda", g).cpu().double(), ba("cpu", c).double()
+    assert (pg[:, :3, 3] - pc[:, :3, 3]).abs().max() <= 1e-4
+    assert ((pg[:, :3, :3] - pc[:, :3, :3]).norm(dim=(1, 2))
+            / np.sqrt(2)).max() <= 1e-4
