@@ -11,6 +11,9 @@ hand-written CUDA kernel (`csrc/scatter_rows.cu`, bound in
 `ops/scatter.py`); and the per-frame tracker, tracker-only
 (`bundlesdf.BundleSdf.run` over `tracker/`, `matcher/`,
 `ops/preprocess.py`).
+
+The entry points (`NofRunner`, `BundleSdf` and the tracker parts they
+build) run on the CUDA card unless the caller passes `device="cpu"`.
 """
 
 __version__ = "0.1.0"
@@ -23,3 +26,13 @@ import torch as _torch
 # into bf16 via explicit dtypes under `amp`.
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device="cuda") -> _torch.device:
+    """`torch.device(device)`; raises if it names CUDA and no card is
+    visible, so an entry point never falls back to the CPU by itself."""
+    dev = _torch.device(device)
+    if dev.type == "cuda" and not _torch.cuda.is_available():
+        raise RuntimeError(f"device {dev}: no CUDA device is visible; pass "
+                           f"device='cpu' to run on the CPU")
+    return dev

@@ -23,6 +23,7 @@ import time
 import numpy as np
 import torch
 
+from bundlesdf_tpu_torch import resolve_device
 from bundlesdf_tpu_torch.config import (default_nerf_config,
                                         default_track_config, load_config)
 from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
@@ -50,10 +51,10 @@ def resize_nearest(img, size):
 class BundleSdf:
     def __init__(self, cfg_track_dir=None, cfg_nerf_dir=None,
                  start_nerf_keyframes=5, matcher=None, use_gui=False,
-                 cfg_track=None, cfg_nerf=None, device="cpu"):
+                 cfg_track=None, cfg_nerf=None, device="cuda"):
         """@cfg_track_dir/@cfg_nerf_dir: YAML paths (reference schemas), or
         pass dicts directly via @cfg_track/@cfg_nerf. @device: where the
-        frame pool, matching, RANSAC and BA run."""
+        frame pool, matching, RANSAC and BA run: the card unless "cpu"."""
         self.cfg_track = (cfg_track if cfg_track is not None
                           else load_config(cfg_track_dir,
                                            default_track_config()))
@@ -64,7 +65,7 @@ class BundleSdf:
             raise NotImplementedError("the GUI is not ported to "
                                       "bundlesdf_tpu_torch (ROADMAP.md queue "
                                       "1, item 12)")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.start_nerf_keyframes = start_nerf_keyframes
         self.debug_dir = self.cfg_track["debug_dir"]
         self.SPDLOG = int(self.cfg_track.get("SPDLOG", 1))

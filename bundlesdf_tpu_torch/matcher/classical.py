@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from bundlesdf_tpu_torch import resolve_device
+
 
 class OrbMatcher:
     # per-frame feature cache capacity (keyframes + window)
@@ -27,7 +29,7 @@ class OrbMatcher:
 
     def __init__(self, n_features: int = 2000, ratio: float = 0.75,
                  ratio_loose: float = 0.85, min_strict: int = 0,
-                 feat_cap: int | None = None, device="cpu", detector=None):
+                 feat_cap: int | None = None, device="cuda", detector=None):
         """@ratio: mutual ratio test threshold; @ratio_loose/@min_strict:
         opt-in two-tier fallback (min_strict > 0) — pairs whose strict-gate
         match count falls below min_strict use ratio_loose (see the JAX
@@ -38,7 +40,7 @@ class OrbMatcher:
         self.ratio = ratio
         self.ratio_loose = ratio_loose
         self.min_strict = int(min_strict)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.detector = detector
         self._orb = None
         self._cache: dict[int, tuple] = {}

@@ -19,6 +19,7 @@ import torch
 from scipy import ndimage
 from scipy.spatial import cKDTree
 
+from bundlesdf_tpu_torch import resolve_device
 from bundlesdf_tpu_torch.nof.losses import LossConfig
 from bundlesdf_tpu_torch.nof.models import NofField, NofSpec
 from bundlesdf_tpu_torch.nof.render import RenderConfig
@@ -99,7 +100,8 @@ class NofRunner:
     @images/depths/masks/normal_maps: outputs of `preprocess_frame_data`.
     @poses: (F,4,4) normalized GL cam-to-object.
     @build_octree_pts: (N,3) normalized cloud for the occupancy grid.
-    @device: torch device every tensor of the runner lives on.
+    @device: torch device every tensor of the runner lives on (the card
+    unless "cpu").
     """
 
     # steps between host pulls of the metrics (the JAX package's scan
@@ -108,9 +110,9 @@ class NofRunner:
 
     def __init__(self, cfg, images, depths, masks, normal_maps, poses, K,
                  occ_masks=None, build_octree_pts=None, seed=0,
-                 exp_logger=None, device="cpu"):
+                 exp_logger=None, device="cuda"):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # experiment scalar/artifact sink (ref attaches a sacred _run,
         # nerf_runner.py:569-576,820-822)
         if exp_logger is None:

@@ -95,22 +95,25 @@ class GatherRows(torch.autograd.Function):
     table gradient accumulated in float32 by `scatter_rows` (the
     counterpart of the JAX `_packed_gather` custom VJP). @rows: (M,) int32;
     the sentinel `table.shape[0]` gathers zeros and drops out of the
-    backward."""
+    backward. @group: the stride at which rows tend to repeat, handed to
+    the scatter (`hashgrid_encode` passes L*8: one sample's corners)."""
 
     @staticmethod
-    def forward(ctx, table, rows, dtype):
+    def forward(ctx, table, rows, dtype, group=1):
         n_rows = table.shape[0]
         got = table.index_select(0, rows.clamp(max=n_rows - 1)).to(dtype)
         ctx.save_for_backward(rows)
         ctx.n_rows = n_rows
+        ctx.group = group
         ctx.table_dtype = table.dtype
         return got * (rows < n_rows).to(dtype)[:, None]
 
     @staticmethod
     def backward(ctx, g):
         (rows,) = ctx.saved_tensors
-        d_table = scatter_rows(g.contiguous(), rows, ctx.n_rows)
-        return d_table.to(ctx.table_dtype), None, None
+        d_table = scatter_rows(g.contiguous(), rows, ctx.n_rows,
+                               group=ctx.group)
+        return d_table.to(ctx.table_dtype), None, None, None
 
 
 def hashgrid_corners(x, spec: HashGridSpec):
@@ -160,7 +163,10 @@ def hashgrid_encode(table, x, spec: HashGridSpec):
     C = table.shape[1]
     rows, wc = hashgrid_corners(x, spec)
     dtype = torch.bfloat16 if spec.table_bf16 else torch.float32
-    f = GatherRows.apply(table, rows.reshape(-1), dtype)
+    # points come ray-major with samples sorted along each ray, so a
+    # (level, corner) of consecutive samples often hits the same row: the
+    # rows of one point repeat at a stride of L*8 entries
+    f = GatherRows.apply(table, rows.reshape(-1), dtype, spec.n_levels * 8)
     f = f.view(N, spec.n_levels, 8, C).float()
     return torch.sum(f * wc[..., None], dim=2).reshape(N, spec.out_dim)
 

@@ -4,13 +4,18 @@ PyTorch twin.
 Port of `bundlesdf_tpu/ops/scatter.py`. The JAX package rebuilds this
 scatter from sorted tiles, one-hot matmuls and a Pallas kernel because a
 TPU scatters row by row; on Hopper the same function is one pass of f32
-atomics (`csrc/scatter_rows.cu`, whose header says what bounds it).
+vector atomics, with runs of equal rows summed in registers first
+(`csrc/scatter_rows.cu`, whose header says what bounds it).
 
 Contract (as `scatter_rows_sorted_tiles` / `scatter_rows_xla`):
-`scatter_rows(vals, rows, n_rows)` returns an (n_rows, C) float32 tensor
-`out[r] = sum of vals[m] over rows[m] == r`; a row id outside [0, n_rows)
-(the sentinel `n_rows`) is dropped; the sum accumulates in float32 and
-`vals` may be float32 or bfloat16.
+`scatter_rows(vals, rows, n_rows, group=1)` returns an (n_rows, C) float32
+tensor `out[r] = sum of vals[m] over rows[m] == r`; a row id outside
+[0, n_rows) (the sentinel `n_rows`) is dropped; the sum accumulates in
+float32 and `vals` may be float32 or bfloat16. `group` is a hint that
+changes no result: the stride between entries whose rows tend to repeat
+(the hash-grid encoder's L*8 corners of one sample; 1 for no such
+structure). The kernel then sums each run of equal rows along that stride
+before one atomic.
 
 The kernel is built at first use with `nvcc` from the `.cu` in this
 package into `csrc/build/` and bound through ctypes: a plain C entry point
@@ -33,6 +38,10 @@ _SOURCE = os.path.join(_CSRC, "scatter_rows.cu")
 BUILD_DIR = os.path.join(_CSRC, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# samples one thread walks along a column when group > 1 (kSamples in the
+# .cu, checked when the library loads): a run of equal rows costs one
+# atomic per RUN_SAMPLES samples at most
+RUN_SAMPLES = 32
 
 
 def scatter_rows_torch(vals, rows, n_rows: int):
@@ -82,14 +91,21 @@ def _library():
     fn = lib.bsdf_scatter_rows
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.bsdf_scatter_rows_samples.restype = ctypes.c_int
+    if lib.bsdf_scatter_rows_samples() != RUN_SAMPLES:
+        raise RuntimeError(f"{path}: kSamples {lib.bsdf_scatter_rows_samples()}"
+                           f" != ops/scatter.py RUN_SAMPLES {RUN_SAMPLES}")
     return fn
 
 
-def scatter_rows(vals, rows, n_rows: int):
+def scatter_rows(vals, rows, n_rows: int, group: int = 1):
     """Row scatter-add (see module docstring). CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise -- never a fallback."""
+    if not (isinstance(group, int) and 0 < group < 2 ** 31):
+        raise ValueError(f"scatter_rows: group must be a positive int, got "
+                         f"{group!r}")
     if vals.device.type == "cpu" and rows.device.type == "cpu":
         return scatter_rows_torch(vals, rows, n_rows)
     if vals.device.type != "cuda" or rows.device != vals.device:
@@ -114,7 +130,7 @@ def scatter_rows(vals, rows, n_rows: int):
     fn = _library()
     with torch.cuda.device(vals.device):
         err = fn(vals.data_ptr(), int(vals.dtype == torch.bfloat16),
-                 rows.data_ptr(), out.data_ptr(), M, C, n_rows,
+                 rows.data_ptr(), out.data_ptr(), M, C, n_rows, group,
                  torch.cuda.current_stream(vals.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"scatter_rows kernel launch failed: CUDA error "

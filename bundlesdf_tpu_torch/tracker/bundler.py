@@ -21,6 +21,7 @@ import os
 import numpy as np
 import torch
 
+from bundlesdf_tpu_torch import resolve_device
 from bundlesdf_tpu_torch.tracker.ba import BAConfig, bundle_adjust_pooled
 from bundlesdf_tpu_torch.tracker.frame import Frame, FrameStatus
 from bundlesdf_tpu_torch.tracker.pool import (FramePool, covis_core,
@@ -40,10 +41,10 @@ class Bundler:
     # matches kept per pair (the most confident) before RANSAC
     MATCH_CAP = 1024
 
-    def __init__(self, cfg, matcher=None, device="cpu"):
+    def __init__(self, cfg, matcher=None, device="cuda"):
         self.cfg = cfg
         self.matcher = matcher
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.frames: dict[int, Frame] = {}
         self.keyframes: list[Frame] = []
         self.first_frame: Frame | None = None

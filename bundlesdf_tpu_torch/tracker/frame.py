@@ -17,6 +17,7 @@ import numpy as np
 import torch
 from scipy.spatial import cKDTree
 
+from bundlesdf_tpu_torch import resolve_device
 from bundlesdf_tpu_torch.ops.preprocess import preprocess_depth_frame
 from bundlesdf_tpu_torch.utils.transfer import HostPull
 
@@ -36,7 +37,7 @@ class Frame:
 
     def __init__(self, color, depth, K, id: int, id_str: str, cfg,
                  mask=None, occ_mask=None, pose_in_model=None, pool=None,
-                 device="cpu"):
+                 device="cuda"):
         self.cfg = cfg
         self.color = np.asarray(color)
         self.H, self.W = self.color.shape[:2]
@@ -77,7 +78,7 @@ class Frame:
                 pool.set_grey(self.id, self.color.astype(np.float32)
                               .mean(axis=-1) / 255.0)
         else:
-            self.device = torch.device(device)
+            self.device = resolve_device(device)
             self.slot = None
             dp = cfg["depth_processing"]
             dev = self.device

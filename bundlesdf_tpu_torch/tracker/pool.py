@@ -29,6 +29,7 @@ import math
 import numpy as np
 import torch
 
+from bundlesdf_tpu_torch import resolve_device
 from bundlesdf_tpu_torch.matcher.classical import orb_match_core
 from bundlesdf_tpu_torch.ops.preprocess import preprocess_depth_frame
 from bundlesdf_tpu_torch.tracker.ransac import ransac_pose
@@ -321,10 +322,10 @@ class FramePool:
     bookkeeping. All maps are float32 (bf16 xyz would cost ~2 mm at 0.5 m,
     too coarse against the 5 mm RANSAC inlier gate)."""
 
-    def __init__(self, H, W, cap=16, device="cpu"):
+    def __init__(self, H, W, cap=16, device="cuda"):
         self.H, self.W = H, W
         self.cap = cap
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.Hh, self.Wh = -(-H // 2), -(-W // 2)
         z = dict(device=self.device)
         self.xyzs = torch.zeros((cap, H, W, 3), **z)

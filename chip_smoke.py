@@ -7,14 +7,19 @@ Phases, one printed line each (or a few), any failure exits non-zero:
   1. the card: torch/CUDA versions, `nvidia-smi` name and power limit;
   2. build the `scatter_rows` CUDA kernel from `bundlesdf_tpu_torch/csrc`;
   3. kernel vs plain PyTorch scatter at the training step's shapes
-     (12.58M rows into the 2,462,164-row table), with times;
+     (12.58M rows into the 2,462,164-row table): uniform random rows, and
+     the rows and values of one real training step, recorded on their way
+     into the kernel; times of the kernel (group 32 and group 1), of
+     `index_add_` and of the plain version, in turns, beside the bound,
+     and the atomics the kernel issues by hash-grid level;
   4. hash-grid table/point gradients through the kernel vs the same graph
      with PyTorch's own scatter; one small training step on the card vs
      the same step on the CPU (the CPU path is the one held against the
      JAX package by tests/test_torch_*.py);
-  5. the NOF main path: `NofRunner` at the online workload (bench.py's
-     configuration) trains 10 + 50 steps; steps/s, memory, losses, and
-     the kernel's launch count;
+  5. the NOF main path: `NofRunner` (built without `device`: the card is
+     the default) at the online workload (bench.py's configuration) trains
+     10 + 50 steps; steps/s, memory, losses, and the kernel's launches
+     (one a step, with group L*8);
   6. tracker components on the card vs the CPU at the steady 480x640
      shapes: the depth chain into the pool, `orb_lift_ransac_slots` (16
      pairs, 2048 features, injected RANSAC draws), `bundle_adjust_pooled`
@@ -30,6 +35,7 @@ frames. Needs a CUDA card and nvcc; refuses to run on the CPU.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -46,6 +52,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N_RAND, N_SAMPLES, N_LEVELS = 2048, 128 + 64, 4
 M_ROWS = N_RAND * N_SAMPLES * N_LEVELS * 8        # 12,582,912 gathered rows
 WARMUP_STEPS, TIMED_STEPS = 10, 50
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, float32 FLOP/s
+# outside the tensor cores
+HBM_BYTES_S, F32_FLOPS = 3.35e12, 67e12
 
 
 def _cuda_ms(fn, reps=10):
@@ -61,6 +70,57 @@ def _cuda_ms(fn, reps=10):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def _queued_ms(fn, n=20):
+    """Device ms of one fn() call: @n calls queued behind a ~10 ms device
+    sleep, CUDA events around the n calls. The host enqueues the calls
+    while the device sleeps, so its launch cost stays off the clock
+    unless fn itself waits for the device."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def _in_turns(fns, reps=5):
+    """Median device ms of each of @fns (name -> fn), timed in turns:
+    every fn in order, then in reverse order, @reps `_queued_ms` each."""
+    for fn in fns.values():
+        fn()
+    times = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            times[k] += [_queued_ms(fns[k]) for _ in range(reps)]
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def _bound(vals, rows, n_rows):
+    """Least time of the scatter on this card, ms, and what sets it: each
+    input byte read once, the float32 output written once, against the
+    M*C float32 adds at the float32 peak."""
+    M, C = vals.shape
+    nbytes = (vals.numel() * vals.element_size()
+              + rows.numel() * rows.element_size() + n_rows * C * 4)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, M * C / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _index_add(vals, rows, n_rows):
+    """The library yardstick: one `index_add_` on inputs whose sentinels
+    were filtered out (and values widened to float32) beforehand."""
+    keep = (rows >= 0) & (rows < n_rows)
+    idx, src = rows[keep].long(), vals[keep].float()
+    C = vals.shape[1]
+    return lambda: torch.zeros((n_rows, C), dtype=torch.float32,
+                               device=vals.device).index_add_(0, idx, src)
 
 
 def phase_card():
@@ -93,9 +153,23 @@ def _scatter_case(n_rows, C, dtype, gen):
     return vals, rows
 
 
+def _check_scatter(name, vals, rows, n_rows, group):
+    """Kernel vs plain; f32 atomics in another order are the only
+    difference: atol 1e-4, rtol 1e-5. Returns the max abs error."""
+    from bundlesdf_tpu_torch.ops.scatter import scatter_rows, scatter_rows_torch
+    out = scatter_rows(vals, rows, n_rows, group=group)
+    ref = scatter_rows_torch(vals, rows, n_rows)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    if not torch.allclose(out, ref, atol=1e-4, rtol=1e-5):
+        raise AssertionError(f"scatter {name} group {group}: kernel != "
+                             f"plain, max abs err {err}")
+    return err
+
+
 def phase_scatter(n_rows):
-    """Kernel vs plain at the main-path shapes; f32 atomics in another
-    order are the only difference: atol 1e-4, rtol 1e-5."""
+    """Kernel vs plain on uniform random rows at the main-path shapes (no
+    runs: group 1), timed in turns with index_add_ and the plain version."""
     from bundlesdf_tpu_torch.ops.scatter import scatter_rows, scatter_rows_torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
@@ -103,21 +177,97 @@ def phase_scatter(n_rows):
                            ("c2_bf16", 2, torch.bfloat16),
                            ("c16_bf16", 16, torch.bfloat16)):
         vals, rows = _scatter_case(n_rows, C, dtype, gen)
-        out = scatter_rows(vals, rows, n_rows)
-        ref = scatter_rows_torch(vals, rows, n_rows)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        if not torch.allclose(out, ref, atol=1e-4, rtol=1e-5):
-            raise AssertionError(f"scatter {name}: kernel != plain, "
-                                 f"max abs err {err}")
-        ms = _cuda_ms(lambda: scatter_rows(vals, rows, n_rows))
-        plain_ms = _cuda_ms(lambda: scatter_rows_torch(vals, rows, n_rows))
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        print(f"scatter {name}: M={M_ROWS} n_rows={n_rows} C={C} "
-              f"max_abs_err={err:.3e} kernel {ms:.3f} ms plain {plain_ms:.3f} ms",
+        err = _check_scatter(name, vals, rows, n_rows, 1)
+        t = _in_turns({
+            "ms": lambda: scatter_rows(vals, rows, n_rows),
+            "library_ms": _index_add(vals, rows, n_rows),
+            "plain_ms": lambda: scatter_rows_torch(vals, rows, n_rows)})
+        bound_ms, _ = _bound(vals, rows, n_rows)
+        results[name] = {"max_abs_err": err, **t, "bound_ms": bound_ms}
+        print(f"scatter uniform {name}: M={M_ROWS} n_rows={n_rows} C={C} "
+              f"max_abs_err={err:.3e} kernel {t['ms']:.4f} ms, index_add_ "
+              f"{t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_ms / t['ms']:.1%})",
               flush=True)
-        del vals, rows, out, ref
+        del vals, rows
     return results
+
+
+def record_step(runner):
+    """The (vals, rows, n_rows, group) that one real training step of
+    @runner hands the scatter kernel, recorded on their way in."""
+    from bundlesdf_tpu_torch.ops import hashgrid
+    orig, seen = hashgrid.scatter_rows, []
+
+    def recorder(vals, rows, n_rows, group=1):
+        seen.append((vals.clone(), rows.clone(), n_rows, group))
+        return orig(vals, rows, n_rows, group=group)
+
+    hashgrid.scatter_rows = recorder
+    try:
+        runner.train(n_steps=1)
+    finally:
+        hashgrid.scatter_rows = orig
+    if len(seen) != 1:
+        raise AssertionError(f"one training step made {len(seen)} scatter "
+                             f"calls, expected 1")
+    return seen[0]
+
+
+def run_atomics(rows, n_rows, group, samples):
+    """Vector atomics the kernel issues for each of the @group columns
+    (per channel chunk): one per run of equal in-range rows along the
+    column, a run cut every @samples samples (1: one per entry)."""
+    n = rows.shape[0] // group
+    r = rows[:n * group].view(n, group)
+    new = torch.ones_like(r, dtype=torch.bool)
+    new[1:] = r[1:] != r[:-1]
+    new[::samples] = True
+    return (new & (r >= 0) & (r < n_rows)).sum(0)
+
+
+def phase_scatter_real(runner):
+    """The kernel on the rows of one real training step: group L*8 (runs
+    summed in registers) and group 1 (one atomic per entry), index_add_ and
+    the plain version, in turns; the bound and the atomics by level."""
+    from bundlesdf_tpu_torch.ops.scatter import (RUN_SAMPLES, scatter_rows,
+                                                 scatter_rows_torch)
+    vals, rows, n_rows, group = record_step(runner)
+    L = runner.spec.grid.n_levels
+    if group != L * 8 or vals.shape != (M_ROWS, 2):
+        raise AssertionError(f"real step: group {group}, vals "
+                             f"{tuple(vals.shape)}; expected {L * 8} and "
+                             f"({M_ROWS}, 2)")
+    errs = [_check_scatter("real step", vals, rows, n_rows, g)
+            for g in (group, 1)]
+    adds = run_atomics(rows, n_rows, group, 1).view(L, 8).sum(1)
+    runs = run_atomics(rows, n_rows, group, RUN_SAMPLES).view(L, 8).sum(1)
+    t = _in_turns({
+        "real_step_ms": lambda: scatter_rows(vals, rows, n_rows, group=group),
+        "group1_ms": lambda: scatter_rows(vals, rows, n_rows),
+        "library_ms": _index_add(vals, rows, n_rows),
+        "plain_ms": lambda: scatter_rows_torch(vals, rows, n_rows),
+        # the output's zero fill alone: part of every variant above
+        "zero_fill_ms": lambda: torch.zeros((n_rows, vals.shape[1]),
+                                            device=vals.device)})
+    bound_ms, bound_by = _bound(vals, rows, n_rows)
+    res = {"max_abs_err": max(errs), **t, "bound_ms": bound_ms,
+           "bound_by": bound_by,
+           "bound_share": bound_ms / t["real_step_ms"],
+           "row_adds": adds.tolist(), "atomics": runs.tolist()}
+    print(f"scatter real step: M={rows.shape[0]} C={vals.shape[1]} "
+          f"{vals.dtype} n_rows={n_rows} group={group} max_abs_err "
+          f"{max(errs):.3e}; kernel group {group} "
+          f"{t['real_step_ms']:.4f} ms, group 1 {t['group1_ms']:.4f} ms, "
+          f"index_add_ {t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+          f"ms (each with the output's zero fill, {t['zero_fill_ms']:.4f} "
+          f"ms alone); bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{res['bound_share']:.1%} of it reached", flush=True)
+    print(f"scatter real step by level: in-range row-adds "
+          f"{adds.tolist()} (sum {int(adds.sum())}); vector atomics at group "
+          f"{group} {runs.tolist()} (sum {int(runs.sum())}, "
+          f"{RUN_SAMPLES}-sample tiles)", flush=True)
+    return res
 
 
 def _ray_points(n_rays, n_samples, gen):
@@ -232,22 +382,36 @@ def make_runner():
     rgbs, depths, masks, normals, poses = preprocess_frame_data(
         seq["colors"].copy(), seq["depths"].copy(), seq["masks"].copy(), None,
         poses_gl.copy(), sc, translation)
-    return NofRunner(cfg, rgbs, depths, masks, normals, poses, seq["K"],
-                     device="cuda")
+    runner = NofRunner(cfg, rgbs, depths, masks, normals, poses, seq["K"])
+    if runner.device.type != "cuda":
+        raise AssertionError(f"NofRunner's default device is {runner.device}")
+    return runner
 
 
 def phase_main(runner):
+    from bundlesdf_tpu_torch.ops import hashgrid
     from bundlesdf_tpu_torch.ops.scatter import scatter_rows
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    scatter_rows.launches = 0
-    m0 = runner.train(n_steps=WARMUP_STEPS)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    m1 = runner.train(n_steps=TIMED_STEPS)   # pulls metrics: a host sync
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = scatter_rows.launches
+    # the group of every scatter call, counted on the way in
+    groups, orig = collections.Counter(), hashgrid.scatter_rows
+
+    def counted(vals, rows, n_rows, group=1):
+        groups[group] += 1
+        return orig(vals, rows, n_rows, group=group)
+
+    hashgrid.scatter_rows = counted
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        scatter_rows.launches = 0
+        m0 = runner.train(n_steps=WARMUP_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m1 = runner.train(n_steps=TIMED_STEPS)   # pulls metrics: a host sync
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = scatter_rows.launches
+    finally:
+        hashgrid.scatter_rows = orig
     peak = torch.cuda.max_memory_allocated()
     loss = np.concatenate([m0["loss"], m1["loss"]])
     sdf = np.concatenate([m0["sdf_loss"], m1["sdf_loss"]])
@@ -256,15 +420,18 @@ def phase_main(runner):
           f"({TIMED_STEPS} steps after {WARMUP_STEPS} warm-up), peak "
           f"{peak / 2 ** 30:.3f} GiB, loss {loss[0]:.5f} -> {loss[-1]:.5f}, "
           f"sdf_loss {sdf[0]:.5f} -> {sdf[-1]:.5f}, scatter_rows launches "
-          f"{launches}", flush=True)
+          f"{launches} (calls by group {dict(groups)})", flush=True)
     if not np.isfinite(loss).all():
         raise AssertionError("main path: non-finite loss")
     if not sdf[-5:].mean() < sdf[:5].mean():
         raise AssertionError(f"main path: sdf_loss did not fall "
                              f"({sdf[:5].mean()} -> {sdf[-5:].mean()})")
-    if launches < WARMUP_STEPS + TIMED_STEPS:
-        raise AssertionError(f"main path: {launches} scatter_rows launches "
-                             f"for {WARMUP_STEPS + TIMED_STEPS} steps")
+    n_steps = WARMUP_STEPS + TIMED_STEPS
+    group = runner.spec.grid.n_levels * 8
+    if launches != n_steps or dict(groups) != {group: n_steps}:
+        raise AssertionError(f"main path: {launches} scatter_rows launches, "
+                             f"calls by group {dict(groups)}, for {n_steps} "
+                             f"steps; expected one a step with group {group}")
     return launches
 
 
@@ -273,9 +440,15 @@ def phase_profile(runner, n_steps=5):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         runner.train(n_steps=n_steps)
         torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
+    ka = prof.key_averages()
+    table = ka.table(sort_by="cuda_time_total", row_limit=30)
     print(f"profile of {n_steps} steps, {torch.cuda.get_device_name(0)}\n"
           f"{table}", flush=True)
+    for e in ka:
+        if "scatter_rows_kernel" in e.key:
+            print(f"profile: {e.key}: {e.count} launches, "
+                  f"{e.device_time_total / e.count:.3f} us device time "
+                  f"each", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -499,9 +672,12 @@ def _track(seq, feats, n_frames, profile_from=None):
     cfg.update(stage_timing=True, SPDLOG=0)
     with tempfile.TemporaryDirectory() as tmp:
         cfg["debug_dir"] = tmp
-        matcher = OrbMatcher(device="cuda", detector=lambda f: feats[f.id_str])
+        # built without `device`: the card is the default
+        matcher = OrbMatcher(detector=lambda f: feats[f.id_str])
         t = BundleSdf(cfg_track=cfg, start_nerf_keyframes=10 ** 9,
-                      matcher=matcher, device="cuda")
+                      matcher=matcher)
+        if t.device.type != "cuda" or matcher.device.type != "cuda":
+            raise AssertionError(f"BundleSdf's default device is {t.device}")
         frames, prof = [], None
         for i in range(n_frames):
             if i == 5:
@@ -602,6 +778,7 @@ def main():
     phase_build()
     runner = make_runner()
     scatter = phase_scatter(runner.spec.grid.total_rows)
+    real = phase_scatter_real(runner)
     grad_err = phase_hashgrid_grad(runner.spec.grid)
     phase_step_vs_cpu(runner)
     launches = phase_main(runner)
@@ -616,15 +793,25 @@ def main():
         phase_tracker_profile(seq, feats)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    main_case = scatter["c2_bf16"]
+    # ms, plain_ms, library_ms and the bound: the rows of a real step
     print(json.dumps({"kernels": [{
         "name": "scatter_rows", "route": "cuda",
         "source": "bundlesdf_tpu_torch/csrc/scatter_rows.cu",
         "replaces": "bundlesdf_tpu/ops/scatter.py:221",
         "launches": launches,
         "max_abs_err": max([r["max_abs_err"] for r in scatter.values()]
-                           + [grad_err]),
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"]}]}),
+                           + [real["max_abs_err"], grad_err]),
+        "ms": real["real_step_ms"], "plain_ms": real["plain_ms"],
+        "bound_ms": real["bound_ms"], "bound_by": real["bound_by"],
+        "library_ms": real["library_ms"],
+        "bound_share": real["bound_share"],
+        "real_step_ms": real["real_step_ms"],
+        "group1_ms": real["group1_ms"],
+        "zero_fill_ms": real["zero_fill_ms"],
+        "atomics_by_level": real["atomics"],
+        "uniform": {k: {m: v[m] for m in ("ms", "library_ms", "plain_ms",
+                                          "bound_ms")}
+                    for k, v in scatter.items()}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,7 +51,7 @@ def orbit_frames(n_frames=30):
 
 def detect_all(seq):
     from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
-    orb = OrbMatcher()
+    orb = OrbMatcher(device="cpu")
     feats = []
     for c, m in zip(seq["colors"], seq["masks"]):
         fr = SimpleNamespace(color=c, fg_mask=(m > 0).astype(np.uint8))

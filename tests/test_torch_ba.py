@@ -37,7 +37,7 @@ def problem():
                               obj_size=0.08, full_angle=0.4, noise=0.001)
     rng = np.random.default_rng(1)
     jp_ = jpool.FramePool(H, W, cap=N)
-    tp_ = tpool.FramePool(H, W, cap=N)
+    tp_ = tpool.FramePool(H, W, cap=N, device="cpu")
     for i in range(N):
         d, x, n = map(np.asarray, preprocess_depth_frame(
             jnp.asarray(seq["depths"][i]), jnp.asarray(seq["K"], jnp.float32),

@@ -1,6 +1,7 @@
 """The port on the card: the `scatter_rows` CUDA kernel against its plain
-PyTorch version, the hash-grid gradient through it against PyTorch's own
-gather backward, the wrapper's input checks, and the tracker programs
+PyTorch version (uniform rows, and runs of equal rows at the encoder's
+stride, with and without the `group` hint), the hash-grid gradient through
+it against PyTorch's own gather backward, the wrapper's input checks, and the tracker programs
 (depth chain into the pool, fused ORB match + lift + RANSAC, bundle
 adjustment) on the card against the same calls on the CPU, at small
 shapes. Every test needs a CUDA card and skips without one.
@@ -15,6 +16,7 @@ import torch
 from bundlesdf_tpu_torch.ops.hashgrid import (HashGridSpec, hashgrid_corners,
                                               hashgrid_encode)
 from bundlesdf_tpu_torch.ops.scatter import scatter_rows, scatter_rows_torch
+from scatter_cases import runs_case
 
 pytestmark = pytest.mark.cuda
 
@@ -37,19 +39,51 @@ def _case(M, D, C, seed):
     return torch.from_numpy(vals), torch.from_numpy(rows)
 
 
+@pytest.mark.parametrize("group", [1, 32])
 @pytest.mark.parametrize("C,dtype", [(2, torch.float32), (2, torch.bfloat16),
                                      (16, torch.bfloat16), (3, torch.float32)])
-def test_kernel_matches_plain(cuda_device, C, dtype):
+def test_kernel_matches_plain(cuda_device, C, dtype, group):
     vals, rows = _case(1 << 18, 70000, C, seed=C)
     v, r = vals.to(cuda_device, dtype), rows.to(cuda_device)
     before = scatter_rows.launches
-    out = scatter_rows(v, r, 70000)
+    out = scatter_rows(v, r, 70000, group=group)
     torch.cuda.synchronize()
     assert scatter_rows.launches == before + 1
     assert out.dtype == torch.float32 and out.shape == (70000, C)
     # only the order of the f32 atomic adds differs
     torch.testing.assert_close(out, scatter_rows_torch(v, r, 70000),
                                rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("shuffle", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [2, 3, 16])
+@pytest.mark.parametrize("group", [1, 32])
+def test_kernel_runs_match_plain(cuda_device, group, C, dtype, shuffle):
+    """Runs of equal rows at stride 32 (up to 199 samples: across warps
+    and the kernel's 32-sample tiles), sentinels and ids -1 / D + 7 inside
+    runs, a ragged last tile; shuffled, the same rows with no layout."""
+    D = 5000
+    vals, rows = runs_case(9000, 32, D, C, seed=C, shuffle=shuffle)
+    v = torch.from_numpy(vals).to(cuda_device, dtype)
+    r = torch.from_numpy(rows).to(cuda_device)
+    out = scatter_rows(v, r, D, group=group)
+    torch.testing.assert_close(out, scatter_rows_torch(v, r, D),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_kernel_runs_on_unaligned_values(cuda_device):
+    """Views that start 1, 2 or 4 bf16 values into the buffer are 2-, 4-
+    and 8-byte aligned: the kernel narrows its vector loads and atomics to
+    that alignment, with the same sums."""
+    vals, rows = runs_case(2000, 32, 3000, 4, seed=9)
+    v = torch.from_numpy(vals).to(cuda_device, torch.bfloat16).reshape(-1)
+    r = torch.from_numpy(rows).to(cuda_device)[1:]
+    for k in (1, 2, 4):
+        view = v[k:k + 4 * r.shape[0]].reshape(-1, 4)
+        out = scatter_rows(view, r, 3000, group=32)
+        torch.testing.assert_close(out, scatter_rows_torch(view, r, 3000),
+                                   rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("table_bf16", [False, True])
@@ -81,6 +115,39 @@ def test_hashgrid_gradient_through_kernel(cuda_device, table_bf16):
     torch.testing.assert_close(grads[0][1], grads[1][1], rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("table_bf16", [False, True])
+def test_hashgrid_gradient_on_rays_through_kernel(cuda_device, table_bf16):
+    """Ray-ordered points (samples sorted along each ray, as the renderer
+    queries them): the long runs of equal coarse rows that the kernel
+    sums at group L*8 give the index_select backward's table gradient."""
+    spec = HashGridSpec(table_bf16=table_bf16)            # the online grid
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    o = torch.rand((256, 1, 3), generator=g, device=cuda_device) * 0.6 - 0.3
+    d = torch.randn((256, 1, 3), generator=g, device=cuda_device)
+    t = torch.sort(torch.rand((256, 192, 1), generator=g, device=cuda_device)
+                   * 0.6, dim=1).values
+    x = (o + d / d.norm(dim=-1, keepdim=True) * t).reshape(-1, 3)
+    x = x.clamp(-0.99, 0.99)
+    table0 = torch.rand((spec.total_rows, 2), generator=g,
+                        device=cuda_device) * 0.2 - 0.1
+    cot = torch.randn((x.shape[0], spec.out_dim), generator=g,
+                      device=cuda_device)
+    dtype = torch.bfloat16 if table_bf16 else torch.float32
+    grads = []
+    for use_kernel in (True, False):
+        table = table0.clone().requires_grad_()
+        if use_kernel:
+            enc = hashgrid_encode(table, x, spec)
+        else:
+            rows, wc = hashgrid_corners(x, spec)
+            f = table.index_select(0, rows.reshape(-1).long()).to(dtype)
+            f = f.view(-1, spec.n_levels, 8, 2).float()
+            enc = torch.sum(f * wc[..., None], dim=2).reshape(x.shape[0], -1)
+        torch.sum(enc * cot).backward()
+        grads.append(table.grad)
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-4)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     v = torch.ones((8, 2), device=cuda_device)
     r = torch.zeros(8, dtype=torch.int32, device=cuda_device)
@@ -92,6 +159,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         scatter_rows(torch.ones((2, 8), device=cuda_device).t(), r, 4)
     with pytest.raises(ValueError):
         scatter_rows(v, r.cpu(), 4)
+    with pytest.raises(ValueError):
+        scatter_rows(v, r, 4, group=0)
 
 
 # ---------------------------------------------------------------------------

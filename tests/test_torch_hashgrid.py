@@ -118,3 +118,54 @@ def test_gather_rows_sentinel_gathers_zero_and_drops_gradient():
     assert torch.equal(got[1], torch.zeros(2))
     got.sum().backward()
     assert torch.equal(table.grad[:, 0], torch.tensor([0.0, 2.0, 0.0, 1.0]))
+
+
+def test_gather_rows_hands_the_scatter_group_l8(monkeypatch):
+    """hashgrid_encode tells the scatter that a point's L*8 rows repeat at
+    that stride (the kernel sums runs along it); the gradient is the same
+    as without the hint."""
+    spec = thg.HashGridSpec(**_SPEC)
+    orig = thg.scatter_rows
+    seen = []
+
+    def recorder(vals, rows, n_rows, group=1):
+        seen.append(group)
+        return orig(vals, rows, n_rows, group=group)
+
+    x = torch.from_numpy(_ray_points(8, 16))
+    grads = []
+    for hook in (recorder, orig):
+        monkeypatch.setattr(thg, "scatter_rows", hook)
+        table = torch.from_numpy(_table(spec)).requires_grad_()
+        thg.hashgrid_encode(table, x, spec).square().sum().backward()
+        grads.append(table.grad)
+    assert seen == [spec.n_levels * 8]
+    assert torch.equal(grads[0], grads[1])
+
+
+def test_ray_points_repeat_rows_at_stride_l8():
+    """The layout the scatter kernel relies on: for ray-ordered points
+    (samples sorted along each ray, as the renderer queries them) a
+    (level, corner) column of consecutive samples repeats its row, so the
+    flat rows repeat at a stride of L*8 entries -- in runs longer than one
+    sample at the coarse levels -- and never at stride 1."""
+    spec = thg.HashGridSpec()                      # the online grid
+    rng = np.random.default_rng(5)
+    n_rays, n_samples = 32, 192
+    o = rng.uniform(-0.3, 0.3, (n_rays, 1, 3))
+    d = rng.standard_normal((n_rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.sort(rng.uniform(0.0, 0.6, (n_rays, n_samples, 1)), axis=1)
+    x = np.clip((o + d * t).reshape(-1, 3), -0.99, 0.99).astype(np.float32)
+    rows, _ = thg.hashgrid_corners(torch.from_numpy(x), spec)
+    flat = rows.reshape(-1)
+    g = spec.n_levels * 8
+    assert not torch.any(flat[1:] == flat[:-1])
+    assert torch.any(flat[g:] == flat[:-g])
+    per_ray = rows.reshape(n_rays, n_samples, spec.n_levels, 8)
+    new_run = torch.ones_like(per_ray, dtype=torch.bool)
+    new_run[:, 1:] = per_ray[:, 1:] != per_ray[:, :-1]
+    mean_run = n_rays * n_samples * 8 / new_run.sum(dim=(0, 1, 3)).double()
+    assert mean_run[0] > 1.0
+    # coarser levels, longer runs
+    assert torch.all(mean_run[:-1] > mean_run[1:])

@@ -62,7 +62,7 @@ def test_orb_match_core_matches_jax(min_strict):
 def _port_frames(seq, cfg):
     from bundlesdf_tpu_torch.tracker.frame import Frame
     return [Frame(seq["colors"][i], seq["depths"][i], seq["K"], i,
-                  seq["id_strs"][i], cfg, mask=seq["masks"][i])
+                  seq["id_strs"][i], cfg, mask=seq["masks"][i], device="cpu")
             for i in range(len(seq["colors"]))]
 
 
@@ -94,14 +94,15 @@ def test_orb_detection_matches_jax():
     fr = SimpleNamespace(id=0, color=seq["colors"][1],
                          fg_mask=seq["masks"][1].astype(np.uint8))
     uv_j, des_j, bits_j, uvp_j = JaxOrb(feat_cap=256)._frame_feats(fr)
-    orb = OrbMatcher(feat_cap=256)
+    orb = OrbMatcher(feat_cap=256, device="cpu")
     uv_t, des_t, bits_t, uvp_t = orb._frame_feats(fr)
     np.testing.assert_array_equal(uv_t, np.asarray(uv_j, np.float32))
     np.testing.assert_array_equal(des_t, des_j)
     np.testing.assert_array_equal(bits_t.numpy(), np.asarray(bits_j))
     np.testing.assert_array_equal(uvp_t.numpy(), np.asarray(uvp_j))
     # the detector hook replaces detection and nothing else
-    hooked = OrbMatcher(feat_cap=256, detector=lambda f: (uv_t, des_t))
+    hooked = OrbMatcher(feat_cap=256, device="cpu",
+                        detector=lambda f: (uv_t, des_t))
     np.testing.assert_array_equal(hooked._frame_feats(fr)[2].numpy(),
                                   bits_t.numpy())
 

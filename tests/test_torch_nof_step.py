@@ -64,7 +64,8 @@ def stacks():
     rgbs, depths, masks, normals, poses = preprocess_frame_data(
         seq["colors"].copy(), seq["depths"].copy(), seq["masks"].copy(), None,
         (seq["cam_in_obs"] @ GLCAM_IN_CVCAM).copy(), sc, np.zeros(3))
-    runner = NofRunner(cfg, rgbs, depths, masks, normals, poses, seq["K"])
+    runner = NofRunner(cfg, rgbs, depths, masks, normals, poses, seq["K"],
+                       device="cpu")
     occ = runner.occ_grid
     j_occ = JOccupancyGrid(grid=jnp.asarray(occ.grid.numpy()), res=occ.res,
                            trace=jnp.asarray(occ.trace.numpy()),

@@ -110,7 +110,7 @@ def test_preprocess_into_pool_and_mask(frame):
             jnp.zeros((2, H // 2, W // 2), bool)]
     *jarr, nj = jpool.preprocess_into_pool(*jarr, 1, jnp.asarray(depth),
                                            jnp.asarray(K), jnp.asarray(mask))
-    pool = tpool.FramePool(H, W, cap=2)
+    pool = tpool.FramePool(H, W, cap=2, device="cpu")
     nt = tpool.preprocess_into_pool(*pool.tensors, 1, _t(depth), _t(K),
                                     _t(mask))
     vj, vt = np.asarray(jarr[3][1]), pool.valids[1].numpy()

@@ -96,7 +96,7 @@ def test_pool_lifecycle_and_growth():
     seq = cube_orbit_sequence(n_frames=3, H=32, W=40, full_angle=0.3)
     cfg = default_track_config()["depth_processing"]
     jp_ = jpool.FramePool(32, 40, cap=2)
-    tp_ = tpool.FramePool(32, 40, cap=2)
+    tp_ = tpool.FramePool(32, 40, cap=2, device="cpu")
     order = [0, 1, 2, 3, 4]
     for fid in order:                       # grows 2 -> 4 -> 8
         i = fid % 3
@@ -127,7 +127,7 @@ def scene():
                               obj_size=0.08, full_angle=0.4)
     H, W = 120, 160
     jp_ = jpool.FramePool(H, W, cap=4)
-    tp_ = tpool.FramePool(H, W, cap=4)
+    tp_ = tpool.FramePool(H, W, cap=4, device="cpu")
     orb = JaxOrb()
     feats = []
     for i in range(4):

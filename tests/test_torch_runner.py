@@ -45,7 +45,7 @@ def runners(request, orbit):
     if request.param == "given_cloud":
         pts = np.random.default_rng(0).uniform(-0.15, 0.15, (4000, 3))
     port = NofRunner(cfg, rgbs, depths, masks, normals, poses, K,
-                     build_octree_pts=pts)
+                     build_octree_pts=pts, device="cpu")
     ref = JaxNofRunner(cfg, rgbs, depths, masks, normals, poses, K,
                        build_octree_pts=pts)
     return port, ref
@@ -85,7 +85,8 @@ def test_mask_dilation_matches_cv2(orbit, k):
 
 def test_training_reduces_loss(orbit):
     cfg, (rgbs, depths, masks, normals, poses), K = orbit
-    runner = NofRunner(cfg, rgbs, depths, masks, normals, poses, K)
+    runner = NofRunner(cfg, rgbs, depths, masks, normals, poses, K,
+                       device="cpu")
     metrics = runner.train(n_steps=40)
     assert runner.global_step == 40
     assert np.isfinite(metrics["loss"]).all()

@@ -9,6 +9,7 @@ import torch
 
 from bundlesdf_tpu.ops.scatter import scatter_rows_sorted_tiles, scatter_rows_xla
 from bundlesdf_tpu_torch.ops.scatter import scatter_rows
+from scatter_cases import runs_case
 
 torch.set_num_threads(2)
 
@@ -58,6 +59,27 @@ def test_scatter_rows_drops_out_of_range_rows():
     want = torch.tensor([[0, 1], [0, 0], [8, 9], [2 + 10, 3 + 11]],
                         dtype=torch.float32)
     assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("group", [1, 8, 32])
+def test_scatter_rows_group_changes_no_result(group):
+    """`group` is a layout hint: on the CPU, runs of equal rows at that
+    stride sum to what group=1 and the JAX sorted-tile scatter give."""
+    vals, rows = runs_case(6400 // group, group, 3000, 2, seed=group,
+                           negative=False)
+    v, r = torch.from_numpy(vals), torch.from_numpy(rows)
+    out = scatter_rows(v, r, 3000, group=group)
+    assert torch.equal(out, scatter_rows(v, r, 3000))
+    tiles = np.asarray(scatter_rows_sorted_tiles(
+        jnp.asarray(vals), jnp.asarray(rows), 3000, bf16=False))
+    np.testing.assert_allclose(out.numpy(), tiles, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("group", [0, -3, 2.0, None])
+def test_scatter_rows_rejects_a_bad_group(group):
+    with pytest.raises(ValueError, match="group"):
+        scatter_rows(torch.ones(4, 2), torch.zeros(4, dtype=torch.int32), 2,
+                     group=group)
 
 
 def test_cpu_path_launches_nothing_and_other_devices_raise():

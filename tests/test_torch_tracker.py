@@ -38,7 +38,7 @@ def runs(tmp_path_factory):
     out = {}
     for name, cls, kw in (("jax", JaxBundleSdf,
                            {"cfg_nerf": default_nerf_config()}),
-                          ("torch", BundleSdf, {})):
+                          ("torch", BundleSdf, {"device": "cpu"})):
         tmp = tmp_path_factory.mktemp(name)
         t = cls(cfg_track=_cfg(tmp), start_nerf_keyframes=10 ** 9, **kw)
         frames = [t.run(seq["colors"][i], seq["depths"][i].copy(), seq["K"],
@@ -102,7 +102,8 @@ def test_artifacts_written_the_same_way(runs):
 
 def test_nof_start_raises_instead_of_skipping(tmp_path):
     seq = cube_orbit_sequence(n_frames=2, H=60, W=80, full_angle=0.1)
-    t = BundleSdf(cfg_track=_cfg(tmp_path), start_nerf_keyframes=1)
+    t = BundleSdf(cfg_track=_cfg(tmp_path), start_nerf_keyframes=1,
+                  device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
         t.run(seq["colors"][0], seq["depths"][0].copy(), seq["K"], "0000",
               mask=seq["masks"][0])

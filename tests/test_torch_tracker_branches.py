@@ -35,7 +35,7 @@ def test_off_by_default_branches(tmp_path, branch):
     poses = {}
     for name, cls, kw in (("jax", JaxBundleSdf,
                            {"cfg_nerf": default_nerf_config()}),
-                          ("torch", BundleSdf, {})):
+                          ("torch", BundleSdf, {"device": "cpu"})):
         cfg = _cfg(tmp_path / name)
         if branch == "denoise_cloud":
             cfg["depth_processing"]["denoise_cloud"] = True
