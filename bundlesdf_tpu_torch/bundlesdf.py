@@ -1,23 +1,30 @@
-"""BundleSdf orchestrator, tracker-only: the per-frame tracking pipeline.
+"""BundleSdf orchestrator: the per-frame tracking pipeline plus concurrent
+Neural Object Field (NOF) training with pose sync-back.
 
-Port of the tracker path of `bundlesdf_tpu/bundlesdf.py` (ref
-`bundlesdf.py:266-766`): `BundleSdf(cfg_track=..., device=...).run(color,
-depth, K, id_str, mask, occ_mask, pose_in_model)` once per frame, then
-`on_finish()`. Frame k's BA result is pulled, and its keyframe admission
-and artifacts done, at the start of frame k+1, after frame k+1's depth
-chain and feature detection are issued (`async_pipeline`), so host work
-overlaps the solve on the device.
+Port of `bundlesdf_tpu/bundlesdf.py` (ref `bundlesdf.py:266-766`):
+`BundleSdf(cfg_track=..., cfg_nerf=..., device=...).run(color, depth, K,
+id_str, mask, occ_mask, pose_in_model)` once per frame, then `on_finish()`.
+Frame k's BA result is pulled, and its keyframe admission and artifacts
+done, at the start of frame k+1, after frame k+1's depth chain and feature
+detection are issued (`async_pipeline`), so host work overlaps the solve
+on the device.
 
-The Neural Object Field (NOF) half of the orchestrator is not ported yet
-(ROADMAP queue 1, item 7): a run that reaches `start_nerf_keyframes`
-keyframes, where the JAX package starts the NOF, raises
-NotImplementedError instead of skipping it.
+From `start_nerf_keyframes` keyframes on, keyframe batches train a
+`NofRunner` (continual: `add_new_frames`), and its optimized poses are
+synced back into the keyframes (`nerfed`, which pins them in the BA). The
+reference trains in a child process, bounded by `sync_max_delay`
+keyframes of lead; here either the tracker thread polls the batch chunk by
+chunk, or (`async_host`) a worker thread owns each batch. The runner's
+device work runs on its own CUDA stream in both forms. After `on_finish`,
+`.mesh` holds the final mesh in real-world coordinates.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import logging
 import os
+import threading
 import time
 
 import numpy as np
@@ -27,12 +34,15 @@ from bundlesdf_tpu_torch import resolve_device
 from bundlesdf_tpu_torch.config import (default_nerf_config,
                                         default_track_config, load_config)
 from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
+from bundlesdf_tpu_torch.nof.runner import NofRunner, preprocess_frame_data
+from bundlesdf_tpu_torch.scene.bounds import (compute_scene_bounds,
+                                              compute_scene_bounds_frame,
+                                              find_biggest_cluster,
+                                              voxel_downsample)
 from bundlesdf_tpu_torch.tracker.bundler import Bundler
 from bundlesdf_tpu_torch.tracker.frame import Frame, FrameStatus
-
-_NOF_TODO = ("the Neural Object Field is not ported to bundlesdf_tpu_torch "
-             "yet (ROADMAP.md queue 1, item 7); run tracker-only with "
-             "start_nerf_keyframes larger than the keyframe count")
+from bundlesdf_tpu_torch.utils.common import (GLCAM_IN_CVCAM,
+                                              geodesic_distance_np)
 
 
 def resize_nearest(img, size):
@@ -106,8 +116,39 @@ class BundleSdf:
                                                       True))
         self._deferred = None  # (frame, pending BA)
 
-        # keyframes the NOF would have been fed (ref kf_to_nerf_list)
-        self.n_nerf_keyframes = 0
+        # NOF side state (replaces the run_nerf child, bundlesdf.py:64-260)
+        self.nerf: NofRunner | None = None
+        self.kf_to_nerf_list: list[dict] = []
+        self.nerf_num_frames = 0
+        self.cnt_nerf = -1
+        self.prev_pcd_real_scale = None
+        self.translation = None
+        self.sc_factor = None
+        self.mesh = None
+        # tracker||NOF stall anatomy: wall seconds by phase, accumulated
+        # across the run. Keys: nerf_prep (host batch prep: scene bounds +
+        # ray store + runner init), nerf_dispatch (start_training),
+        # nerf_poll (chunk feed from the tracker thread), nerf_sync
+        # (blocking finish_training / worker join), nerf_post (pose
+        # sync-back + optional mesh extract); nerf_worker_s (the worker
+        # thread's whole batches) and nof_steps_total appear with the first
+        # batch. n_* are event counts.
+        self.pipeline_stats = {
+            "nerf_prep_s": 0.0, "nerf_dispatch_s": 0.0, "nerf_poll_s": 0.0,
+            "nerf_sync_s": 0.0, "nerf_post_s": 0.0,
+            "n_batches": 0, "n_sync_blocks": 0}
+        # threaded NOF host pipeline (the reference runs the NOF in a child
+        # process, bundlesdf.py:64-260 + run:571-599): with async_host a
+        # worker thread owns each batch (scene bounds, ray store, training,
+        # drain) and the tracker only blocks on the sync_max_delay gate;
+        # otherwise the tracker thread polls the batch chunk by chunk. None
+        # resolves to threaded when sync_max_delay > 0.
+        if self.cfg_nerf.get("async_host") is None:
+            self._async_host = int(self.cfg_nerf.get("sync_max_delay", 0)) > 0
+        else:
+            self._async_host = bool(self.cfg_nerf.get("async_host"))
+        self._nerf_thread: threading.Thread | None = None
+        self._nerf_worker_err: Exception | None = None
         # per-frame wall stage timing (cfg_track['stage_timing']: true):
         # one {stage: seconds} dict per run() call. Pure perf_counter
         # spans, no device barriers, so the split is what the host loop
@@ -424,14 +465,225 @@ class BundleSdf:
         self._finalize_frame(frame)
 
     def _finalize_frame(self, frame):
-        """Post-BA per-frame tail, tracker part: count a new keyframe
-        toward the NOF start and write the frame's artifacts (ref
-        bundlesdf.py:546-632)."""
+        """Post-BA per-frame tail: NOF keyframe feed + sync, artifact
+        writes (ref bundlesdf.py:546-632)."""
         if self.bundler.keyframes and self.bundler.keyframes[-1] is frame:
-            self.n_nerf_keyframes += 1
-            if self.n_nerf_keyframes >= self.start_nerf_keyframes:
-                raise NotImplementedError(_NOF_TODO)
+            self.kf_to_nerf_list.append({
+                "rgb": frame.color.copy(),
+                "depth": frame.depth.copy(),
+                "mask": (frame.fg_mask > 0).astype(np.uint8),
+                "occ_mask": frame.occ_mask,
+                "normal_map": None,
+            })
+            ready = (self.cnt_nerf >= 0
+                     or len(self.kf_to_nerf_list) >= self.start_nerf_keyframes)
+            if ready and not self._nerf_busy():
+                # idle NOF: consume everything accumulated as one batch. A
+                # batch in flight does not block here: keyframes accumulate
+                # and the next batch takes the whole list (the reference's
+                # run_nerf child drains kf_to_nerf_list only between
+                # train() calls, bundlesdf.py:96-129)
+                self._run_nerf_batch()
+
+        # tracker || NOF overlap with the reference's sync_max_delay
+        # semantics (bundlesdf.py:571-599): keep tracking while the batch
+        # trains, but block + sync once the tracker is sync_max_delay
+        # keyframes ahead of the frames the NOF consumed (0 = strict sync,
+        # config.yml:102)
+        behind = len(self.bundler.keyframes) - self.nerf_num_frames
+        max_ahead = int(self.cfg_nerf.get("sync_max_delay", 0))
+        if self._async_host and self._nerf_thread is not None:
+            done = not self._nerf_thread.is_alive()
+        elif self.nerf is not None and self.nerf.training_in_flight:
+            t0 = time.perf_counter()
+            done = self.nerf.poll_training()
+            self.pipeline_stats["nerf_poll_s"] += time.perf_counter() - t0
+        else:
+            done = None
+        if done is not None and (done or behind >= max_ahead):
+            if not done:
+                self.pipeline_stats["n_sync_blocks"] += 1
+            self._finish_nerf_batch()
+            # reference consumer loop: the freed NOF immediately takes the
+            # accumulated keyframes as its next batch
+            if self.kf_to_nerf_list and self.cnt_nerf >= 0:
+                self._run_nerf_batch()
         self.save_newframe_result(frame)
+
+    # ------------------------------------------------------------------
+    # NOF batch (ref run_nerf bundlesdf.py:64-260, continual branch)
+    # ------------------------------------------------------------------
+    def _run_nerf_batch(self):
+        self.pipeline_stats["n_batches"] += 1
+        batch = self.kf_to_nerf_list
+        self.kf_to_nerf_list = []
+        self.nerf_num_frames += len(batch)
+        self.cnt_nerf += 1
+        first = self.cnt_nerf == 0
+        # pose snapshot on the tracker thread: the worker never reads
+        # keyframe poses while BA writes them
+        cam_in_obs = np.array([kf.pose_in_model for kf in
+                               self.bundler.keyframes])
+        if not self._async_host:
+            self._nerf_batch_body(batch, cam_in_obs, first)
+            return
+        if self._nerf_thread is not None and self._nerf_thread.is_alive():
+            raise RuntimeError("a NOF batch is already in flight")
+
+        def work():
+            try:
+                t0 = time.perf_counter()
+                self._nerf_batch_body(batch, cam_in_obs, first)
+                # drive the batch chunk by chunk; the tracker's work
+                # interleaves with it on the host and on the card
+                while not self.nerf.poll_training(max_chunks=1):
+                    time.sleep(0.002)
+                self.nerf.finish_training()
+                self._count_steps()
+                self.pipeline_stats["nerf_worker_s"] = (
+                    self.pipeline_stats.get("nerf_worker_s", 0.0)
+                    + time.perf_counter() - t0)
+            except Exception as e:  # raised on the tracker at the next join
+                self._nerf_worker_err = e
+
+        self._nerf_thread = threading.Thread(target=work, daemon=True,
+                                             name="nof-worker")
+        self._nerf_thread.start()
+
+    def _count_steps(self):
+        self.pipeline_stats["nof_steps_total"] = (
+            self.pipeline_stats.get("nof_steps_total", 0)
+            + int(self.nerf.global_step - self._nerf_gs0))
+
+    def _nerf_batch_body(self, batch, cam_in_obs, first):
+        """Batch prep + first chunk (ref run_nerf child body). Runs on the
+        worker thread when async_host, else inline on the tracker."""
+        t_prep = time.perf_counter()
+        rgbs = np.array([f["rgb"] for f in batch])
+        depths = np.array([f["depth"] for f in batch])
+        masks = np.array([f["mask"] for f in batch])
+        occ = [f["occ_mask"] for f in batch]
+        occ_masks = (np.array(occ) if all(o is not None for o in occ) and occ
+                     else None)
+
+        glcam_in_obs = cam_in_obs @ GLCAM_IN_CVCAM
+        cfg_nerf = self.cfg_nerf
+
+        if first:
+            sc_factor, translation, pcd_all, _ = compute_scene_bounds(
+                rgbs, depths, masks, glcam_in_obs, self.K,
+                use_mask=True, eps=cfg_nerf["dbscan_eps"],
+                min_samples=cfg_nerf["dbscan_eps_min_samples"])
+            sc_factor *= 0.7  # whole object within bounds (ref :151)
+            self.sc_factor = float(sc_factor)
+            self.translation = translation
+            cfg_nerf["sc_factor"] = self.sc_factor
+            cfg_nerf["translation"] = np.asarray(self.translation)
+        else:
+            pcd_all = self.prev_pcd_real_scale
+            for i in range(len(rgbs)):
+                gl = glcam_in_obs[len(glcam_in_obs) - len(rgbs) + i]
+                pts = compute_scene_bounds_frame(depths[i], masks[i], gl,
+                                                 self.K)
+                if pts is not None:
+                    pcd_all = np.concatenate([pcd_all, pts], axis=0)
+            pcd_all = voxel_downsample(pcd_all, 0.01)
+            _, keep = find_biggest_cluster(
+                pcd_all, eps=cfg_nerf["dbscan_eps"],
+                min_samples=cfg_nerf["dbscan_eps_min_samples"])
+            pcd_all = pcd_all[keep]
+
+        tf_norm = np.eye(4)
+        tf_norm[:3, 3] = np.asarray(self.translation)
+        tf1 = np.eye(4)
+        tf1[:3, :3] *= self.sc_factor
+        tf_norm = tf1 @ tf_norm
+        pcd_norm = pcd_all @ tf_norm[:3, :3].T + tf_norm[:3, 3]
+        pcd_norm = np.clip(pcd_norm, -1, 1)
+
+        # preprocess the NEW batch's images but ALL keyframe poses (the ref
+        # passes all poses so moved keyframes reset, bundlesdf.py:185,223)
+        rgbs_p, depths_p, masks_p, normals_p, poses_all = preprocess_frame_data(
+            rgbs, depths, masks, None, glcam_in_obs.copy(),
+            self.sc_factor, np.asarray(self.translation))
+
+        if first or not cfg_nerf["continual"]:
+            self.nerf = NofRunner(
+                copy.deepcopy(cfg_nerf), rgbs_p, depths_p, masks_p,
+                normals_p, poses_all, self.K, occ_masks=occ_masks,
+                build_octree_pts=pcd_norm, device=self.device,
+                stream=None if self.nerf is None else self.nerf.stream)
+        else:
+            self.nerf.add_new_frames(rgbs_p, depths_p, masks_p, normals_p,
+                                     poses_all, occ_masks=occ_masks,
+                                     new_pcd=pcd_norm, reuse_weights=False)
+        t_disp = time.perf_counter()
+        self.pipeline_stats["nerf_prep_s"] += t_disp - t_prep
+        self._nerf_gs0 = self.nerf.global_step
+        self.nerf.start_training()
+        self.pipeline_stats["nerf_dispatch_s"] += time.perf_counter() - t_disp
+        self.prev_pcd_real_scale = voxel_downsample(pcd_all, 0.01)
+
+    def _nerf_busy(self) -> bool:
+        """True while a NOF batch is in flight OR has landed but its pose
+        sync-back hasn't been applied on the tracker thread yet."""
+        if self._nerf_thread is not None:
+            return True
+        return self.nerf is not None and self.nerf.training_in_flight
+
+    def _finish_nerf_batch(self, final=False):
+        """Block until the in-flight NOF batch completes, then sync the
+        optimized poses back into the keyframes."""
+        t0 = time.perf_counter()
+        if self._nerf_thread is not None:
+            self._nerf_thread.join()
+            self._nerf_thread = None
+            if self._nerf_worker_err is not None:
+                err, self._nerf_worker_err = self._nerf_worker_err, None
+                raise err
+        elif self.nerf is not None and self.nerf.training_in_flight:
+            self.nerf.finish_training()
+            self._count_steps()
+        else:
+            return
+        t1 = time.perf_counter()
+        self.pipeline_stats["nerf_sync_s"] += t1 - t0
+        self._sync_poses_from_nerf(final=final)
+        self.pipeline_stats["nerf_post_s"] += time.perf_counter() - t1
+
+    def _sync_poses_from_nerf(self, final=False):
+        """Overwrite keyframe poses with NOF-optimized poses and mark them
+        nerfed (ref bundlesdf.py:587-617)."""
+        if self.nerf is None:
+            return
+        optimized, offset = self.nerf.get_optimized_poses_in_real_world()
+        rematch = self.cfg_track["feature_corres"]["rematch_after_nerf"]
+        frames_large_update = []
+        for i in range(min(len(optimized), len(self.bundler.keyframes))):
+            kf = self.bundler.keyframes[i]
+            if rematch:
+                trans_up = np.linalg.norm(optimized[i][:3, 3]
+                                          - kf.pose_in_model[:3, 3])
+                rot_up = geodesic_distance_np(optimized[i][:3, :3],
+                                              kf.pose_in_model[:3, :3])
+                if trans_up >= 0.005 or rot_up >= np.deg2rad(5):
+                    frames_large_update.append(kf)
+            kf.pose_in_model = optimized[i].astype(np.float64)
+            kf.nerfed = True
+        if rematch and frames_large_update:
+            ids = {f.id for f in frames_large_update}
+            for key in [k for k in self.bundler.matches
+                        if k[0] in ids or k[1] in ids]:
+                del self.bundler.matches[key]
+
+        # the per-batch mesh exists to feed a GUI (ref bundlesdf.py:234-241);
+        # headless runs skip the dense SDF query + marching unless
+        # mesh_every_batch asks. The final batch always extracts.
+        if final or bool(self.cfg_nerf.get("mesh_every_batch", False)):
+            mesh = self.nerf.extract_mesh()
+            if mesh is not None:
+                self.mesh = self.nerf.mesh_to_real_world(mesh,
+                                                         pose_offset=offset)
 
     # ------------------------------------------------------------------
     # outputs (ref saveNewframeResult Bundler.cpp:959-1111)
@@ -497,5 +749,20 @@ class BundleSdf:
 
     # ------------------------------------------------------------------
     def on_finish(self):
-        """Final pipeline flush (ref on_finish bundlesdf.py:324-338)."""
+        """Final pipeline + NOF flush (ref on_finish bundlesdf.py:324-338):
+        train the keyframes still waiting, sync, and extract the mesh."""
         self.flush_pipeline()
+        if self.kf_to_nerf_list and (self.cnt_nerf >= 0 or
+                                     len(self.kf_to_nerf_list) >=
+                                     self.start_nerf_keyframes):
+            self._finish_nerf_batch()
+            self._run_nerf_batch()
+        self._finish_nerf_batch(final=True)
+        if self.nerf is not None and self.mesh is None:
+            # the last batch completed before on_finish (headless runs skip
+            # the per-batch extract): produce the final mesh now
+            _, offset = self.nerf.get_optimized_poses_in_real_world()
+            mesh = self.nerf.extract_mesh()
+            if mesh is not None:
+                self.mesh = self.nerf.mesh_to_real_world(mesh,
+                                                         pose_offset=offset)

@@ -13,7 +13,8 @@ torch modules (`nerf_helpers.py`):
 
 `NofField` holds every parameter; `forward` and `sdf` have the semantics
 of the JAX `nof_forward` / `nof_sdf`, including the explicit compute-dtype
-casts under AMP. `params_from_jax` loads a JAX parameter pytree.
+casts under AMP. `params_from_jax` loads a JAX parameter pytree;
+`params_to_jax` gives one back.
 """
 from __future__ import annotations
 
@@ -246,3 +247,19 @@ def params_from_jax(np_params: dict) -> dict:
         if k in np_params:
             sd[k] = torch.from_numpy(np.asarray(np_params[k], np.float32).copy())
     return sd
+
+
+def params_to_jax(state: dict) -> dict:
+    """Inverse of `params_from_jax`: the JAX parameter pytree, as numpy
+    arrays, from a `NofField` state dict (or any dict keyed like one, such
+    as its Adam moments)."""
+    out = {}
+    for net in ("sigma_net", "color_net"):
+        n = len({k.split(".")[1] for k in state if k.startswith(net + ".")})
+        out[net] = [{"w": state[f"{net}.{i}.weight"].detach().cpu().numpy().T,
+                     "b": state[f"{net}.{i}.bias"].detach().cpu().numpy()}
+                    for i in range(n)]
+    for k in ("pose_array", "table", "feature_array"):
+        if k in state:
+            out[k] = state[k].detach().cpu().numpy()
+    return out

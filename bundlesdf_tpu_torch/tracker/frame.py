@@ -19,6 +19,7 @@ from scipy.spatial import cKDTree
 
 from bundlesdf_tpu_torch import resolve_device
 from bundlesdf_tpu_torch.ops.preprocess import preprocess_depth_frame
+from bundlesdf_tpu_torch.scene.bounds import voxel_downsample
 from bundlesdf_tpu_torch.utils.transfer import HostPull
 
 
@@ -213,24 +214,3 @@ def statistical_outlier_removal(pts, n_neighbors=30, std_mul=3.0):
     thres = mean_d.mean() + std_mul * mean_d.std()
     return pts[mean_d <= thres]
 
-
-def voxel_downsample(pts, voxel, colors=None):
-    """Mean-of-voxel downsampling (open3d voxel_down_sample equivalent); a
-    copy of the numpy function in `bundlesdf_tpu/scene/bounds.py`, whose
-    module imports sklearn."""
-    if len(pts) == 0:
-        return (pts, colors) if colors is not None else pts
-    keys = np.floor(pts / voxel).astype(np.int64)
-    _, idx, inv = np.unique(keys, axis=0, return_index=True,
-                            return_inverse=True)
-    n = idx.shape[0]
-    sums = np.zeros((n, 3))
-    cnts = np.zeros(n)
-    np.add.at(sums, inv, pts)
-    np.add.at(cnts, inv, 1)
-    out = sums / cnts[:, None]
-    if colors is not None:
-        csums = np.zeros((n, 3))
-        np.add.at(csums, inv, colors)
-        return out, csums / cnts[:, None]
-    return out

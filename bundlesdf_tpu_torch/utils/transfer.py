@@ -33,6 +33,10 @@ class HostPull:
         self._event = torch.cuda.Event()
         self._event.record(torch.cuda.current_stream(cuda[0].device))
 
+    def ready(self) -> bool:
+        """True once the copies have landed; never waits."""
+        return self._event is None or self._event.query()
+
     def get(self) -> dict:
         if self._event is not None:
             self._event.synchronize()

@@ -29,9 +29,19 @@ Phases, one printed line each (or a few), any failure exits non-zero:
      ORB features replayed from tests/fixtures/tracker_orb_30f.npz),
      frames/s, stage times, memory, FAILs, keyframes, ADD/ADD-S against
      the ground truth and the stored JAX trajectory's;
-  8. a JSON line of per-kernel results, then the final status line.
---profile adds torch.profiler tables of 5 NOF steps and of 5 tracked
-frames. Needs a CUDA card and nvcc; refuses to run on the CPU.
+  8. the full online loop, strict sync: `BundleSdf.run` with the NOF on
+     over the same 30 frames (phase 7's track config and features; the
+     NOF config of `run_custom.py --mode run_video`, `n_step` 500,
+     `start_nerf_keyframes` 5, `sync_max_delay` 0): frames/s, NOF batches,
+     steps and steps/s, the stall anatomy (`pipeline_stats`), memory, the
+     scatter kernel's launches (= NOF steps) and the stream it ran on,
+     ADD/ADD-S/AUC and the mesh Chamfer by `eval/benchmark.py`; then the
+     final runner's `extract_mesh` against a CPU runner with its weights;
+  9. the same run threaded (`sync_max_delay` 4, `async_host`);
+ 10. a JSON line of per-kernel results, then the final status line.
+--profile adds torch.profiler tables of 5 NOF steps, of 5 tracked frames
+and of the online loop's first NOF batch. Needs a CUDA card and nvcc;
+refuses to run on the CPU.
 """
 from __future__ import annotations
 
@@ -767,6 +777,250 @@ def phase_tracker_profile(seq, feats):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the full online loop: tracker + NOF (phases 8-9)
+# ---------------------------------------------------------------------------
+NOF_STEPS = 500         # n_step of every NOF batch (config.py default)
+SDF_TOL = 1e-4          # card vs CPU SDF grid (float32 MLP sums, TF32 off)
+FACE_TOL = 0.005        # card vs CPU face count, relative
+CHAMFER_MAX_CM = 2.0
+
+
+def online_nerf_config(cfg_track, **over):
+    """The NOF config of `run_custom.py --mode run_video` (its online
+    changes to the defaults, run_custom.py:58-67) plus @over."""
+    from bundlesdf_tpu_torch.config import default_nerf_config
+    cfg = default_nerf_config()
+    cfg.update(continual=True, trunc_start=0.01, trunc=0.01,
+               mesh_resolution=0.005, down_scale_ratio=1, fs_sdf=0.1,
+               far=cfg_track["depth_processing"]["zfar"], n_step=NOF_STEPS)
+    cfg.update(over)
+    return cfg
+
+
+def visible_gt_points(seq, model_pts, n_frames):
+    """The GT model points the frames saw: within 5 mm of a masked depth
+    map lifted with its GT pose."""
+    from scipy.spatial import cKDTree
+    from bundlesdf_tpu_torch.utils.common import depth2xyzmap
+    pts = []
+    for i in range(n_frames):
+        d = seq["depths"][i].astype(np.float64)
+        xyz = depth2xyzmap(d, seq["K"])[(d >= 0.1) & (seq["masks"][i] > 0)]
+        T = seq["cam_in_obs"][i]
+        pts.append(xyz[::4] @ T[:3, :3].T + T[:3, 3])
+    dist, _ = cKDTree(np.concatenate(pts)).query(model_pts, k=1)
+    return model_pts[dist < 0.005]
+
+
+def run_video(seq, feats, cfg_nerf, n_frames, profile_from=None):
+    """`BundleSdf.run` over @n_frames with the NOF on (built without
+    `device`: the card is the default), then `on_finish`. Returns the
+    tracker, its frames, the wall seconds from a device sync to the end of
+    on_finish, the scatter kernel's launches over the run, and the CUDA
+    streams the kernel was launched on. With @profile_from, a
+    torch.profiler of the card's activity runs from that frame to the end
+    and is returned with its wall seconds as a 6th item."""
+    from bundlesdf_tpu_torch.bundlesdf import BundleSdf
+    from bundlesdf_tpu_torch.config import default_track_config
+    from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
+    from bundlesdf_tpu_torch.ops import hashgrid
+    from bundlesdf_tpu_torch.ops.scatter import scatter_rows
+    cfg = default_track_config()
+    cfg.update(stage_timing=True, SPDLOG=0)
+    streams, orig = collections.Counter(), hashgrid.scatter_rows
+
+    def on_stream(vals, rows, n_rows, group=1):
+        streams[torch.cuda.current_stream().cuda_stream] += 1
+        return orig(vals, rows, n_rows, group=group)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg["debug_dir"] = tmp
+        cfg_nerf = dict(cfg_nerf, save_dir=os.path.join(tmp, "nerf"))
+        matcher = OrbMatcher(detector=lambda f: feats[f.id_str])
+        t = BundleSdf(cfg_track=cfg, cfg_nerf=cfg_nerf,
+                      start_nerf_keyframes=5, matcher=matcher)
+        if t.device.type != "cuda":
+            raise AssertionError(f"BundleSdf's default device is {t.device}")
+        hashgrid.scatter_rows = on_stream
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            scatter_rows.launches = 0
+            t0 = time.perf_counter()
+            frames, prof = [], None
+            for i in range(n_frames):
+                if i == profile_from:
+                    from torch.profiler import ProfilerActivity, profile
+                    prof = profile(activities=[ProfilerActivity.CUDA])
+                    prof.__enter__()
+                    tp = time.perf_counter()
+                frames.append(t.run(seq["colors"][i], seq["depths"][i].copy(),
+                                    seq["K"], seq["id_strs"][i],
+                                    mask=seq["masks"][i]))
+            t.on_finish()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = scatter_rows.launches
+            if prof is not None:
+                wall = time.perf_counter() - tp
+                prof.__exit__(None, None, None)
+                return t, frames, dt, launches, streams, (prof, wall)
+        finally:
+            hashgrid.scatter_rows = orig
+    return t, frames, dt, launches, streams
+
+
+def phase_video(seq, feats, fx, name, cfg_nerf, n_frames=N_TRACK,
+                strict_ref=None):
+    """The full online loop (tracker + NOF) on the card, scored by
+    `eval/benchmark.py` against the ground truth and gated against the
+    JAX package's tracker-only run of the same frames (the fixture)."""
+    from bundlesdf_tpu_torch.eval.benchmark import benchmark_video
+    from bundlesdf_tpu_torch.mesh.marching import marching_tetrahedra
+    t, frames, dt, launches, streams = run_video(seq, feats, cfg_nerf,
+                                                 n_frames)
+    peak = torch.cuda.max_memory_allocated()
+    st = t.pipeline_stats
+    steps = st.get("nof_steps_total", 0)
+    # NOF wall inside batches: the worker's whole batches when threaded,
+    # else dispatch + tracker polls + the blocking drain
+    batch_s = st.get("nerf_worker_s") or (st["nerf_dispatch_s"]
+                                          + st["nerf_poll_s"]
+                                          + st["nerf_sync_s"])
+    status = np.array([f.status.value for f in frames])
+    pred = np.linalg.inv(np.array([f.pose_in_model for f in frames]))
+    gt = np.linalg.inv(seq["cam_in_obs"][:n_frames])
+    mp = fx["model_pts"]
+    scores = benchmark_video(None, gt, mp, visible_gt_points(seq, mp, n_frames),
+                             pred_poses=pred, pred_mesh=t.mesh)
+    jax_add = float(fx["jax_add"][:n_frames].mean())
+    nerf_stream = t.nerf.stream.cuda_stream
+    res = {"frames_per_s": n_frames / dt, "ms_per_frame": 1e3 * dt / n_frames,
+           "n_batches": st["n_batches"], "nof_steps_total": steps,
+           "nof_steps_per_s": steps / max(batch_s, 1e-9),
+           "pipeline_stats": st, "peak_gib": peak / 2 ** 30,
+           "launches": launches,
+           "add_mm": scores["ADD(cm)"] * 10, "adds_mm": scores["ADDS(cm)"] * 10,
+           "add_auc": scores["ADD_AUC(%)"], "adds_auc": scores["ADDS_AUC(%)"],
+           "chamfer_cm": scores["chamfer(cm)"],
+           "mesh_vertices": 0 if t.mesh is None else len(t.mesh.vertices),
+           "mesh_faces": 0 if t.mesh is None else len(t.mesh.faces),
+           "marching": marching_tetrahedra.last_path}
+    vs = "" if strict_ref is None else (
+        f" (strict sync {strict_ref['frames_per_s']:.4f} frames/s, "
+        f"{strict_ref['ms_per_frame']:.3f} ms/frame)")
+    print(f"run_video {name}: {n_frames} frames 480x640, "
+          f"{res['frames_per_s']:.4f} frames/s {res['ms_per_frame']:.3f} "
+          f"ms/frame{vs}; NOF batches {st['n_batches']}, steps {steps} "
+          f"({res['nof_steps_per_s']:.3f} steps/s inside batches); "
+          f"scatter_rows launches {launches}; kernel streams "
+          f"{ {('nof' if k == nerf_stream else k): v for k, v in streams.items()} }; "
+          f"peak {res['peak_gib']:.3f} GiB", flush=True)
+    print(f"run_video {name} pipeline_stats "
+          f"{json.dumps({k: round(v, 6) for k, v in st.items()})}",
+          flush=True)
+    print(f"run_video {name} accuracy: FAIL {int((status == 0).sum())} (JAX "
+          f"{int((fx['jax_status'][:n_frames] == 0).sum())}); keyframes "
+          f"{len(t.bundler.keyframes)} (JAX "
+          f"{int((fx['jax_keyframes'] < n_frames).sum())}); "
+          f"nerfed {sum(kf.nerfed for kf in t.bundler.keyframes)}; mean ADD "
+          f"{res['add_mm']:.4f} mm ADD-S {res['adds_mm']:.4f} mm (AUC "
+          f"{res['add_auc']:.2f} / {res['adds_auc']:.2f} %), JAX tracker-only "
+          f"ADD {jax_add * 1e3:.4f} mm; mesh {res['mesh_vertices']} vertices "
+          f"{res['mesh_faces']} faces, {res['marching']} marching, Chamfer "
+          f"{res['chamfer_cm']:.4f} cm", flush=True)
+    new_fail = np.nonzero((status == 0) & (fx["jax_status"][:n_frames] != 0))[0]
+    if len(new_fail):
+        raise AssertionError(f"run_video {name}: frames {new_fail.tolist()} "
+                             f"FAIL that did not FAIL in the JAX run")
+    if not np.isfinite(pred).all():
+        raise AssertionError(f"run_video {name}: non-finite poses")
+    if res["add_mm"] > max(2 * jax_add * 1e3, jax_add * 1e3 + 1):
+        raise AssertionError(f"run_video {name}: mean ADD {res['add_mm']} mm "
+                             f"above max(2 x JAX, JAX + 1 mm), JAX "
+                             f"{jax_add * 1e3} mm")
+    if t.mesh is None or not res["chamfer_cm"] < CHAMFER_MAX_CM:
+        raise AssertionError(f"run_video {name}: mesh {res['mesh_faces']} "
+                             f"faces, Chamfer {res['chamfer_cm']} cm (gate "
+                             f"{CHAMFER_MAX_CM} cm)")
+    if not (steps > 0 and launches == steps):
+        raise AssertionError(f"run_video {name}: {launches} scatter_rows "
+                             f"launches for {steps} NOF steps")
+    if set(streams) != {nerf_stream} or \
+            nerf_stream == torch.cuda.default_stream().cuda_stream:
+        raise AssertionError(f"run_video {name}: scatter kernel launched on "
+                             f"streams {dict(streams)}, the runner's is "
+                             f"{nerf_stream}")
+    if not all(kf.nerfed for kf in t.bundler.keyframes):
+        raise AssertionError(f"run_video {name}: a keyframe was never synced "
+                             f"from the NOF")
+    return t, res
+
+
+def phase_video_profile(seq, feats, n_frames=10, profile_from=5):
+    """Device busy share of the online loop (strict sync): the card's
+    kernels from frame @profile_from through `on_finish` of a
+    @n_frames-frame run, which holds the first NOF batch (501 steps)."""
+    from torch.autograd import DeviceType
+    from bundlesdf_tpu_torch.config import default_track_config
+    cfg = online_nerf_config(default_track_config(), sync_max_delay=0)
+    t, _, _, launches, _, (prof, wall) = run_video(
+        seq, feats, cfg, n_frames, profile_from=profile_from)
+    ka = prof.key_averages()
+    dev_us = sum(e.self_device_time_total for e in ka
+                 if e.device_type == DeviceType.CUDA)
+    print(f"profile of the online loop, frames {profile_from}-"
+          f"{n_frames - 1} + on_finish ({t.pipeline_stats['n_batches']} NOF "
+          f"batch(es), {t.pipeline_stats.get('nof_steps_total', 0)} steps, "
+          f"{launches} scatter launches), {torch.cuda.get_device_name(0)}: "
+          f"wall {wall:.3f} s, device-busy {dev_us / 1e6:.3f} s "
+          f"({dev_us / 1e4 / wall:.1f} % of wall)\n"
+          f"{ka.table(sort_by='self_cuda_time_total', row_limit=15)}",
+          flush=True)
+
+
+def phase_mesh_vs_cpu(runner):
+    """The card runner's `extract_mesh` against a CPU runner built from the
+    same keyframes and given the same trained weights: SDF grid within
+    SDF_TOL, face count within FACE_TOL."""
+    from bundlesdf_tpu_torch.nof import runner as runner_mod
+    cpu = runner_mod.NofRunner(
+        runner.cfg, runner.images, runner.depths, runner.masks,
+        runner.normal_maps, runner.poses, runner.K,
+        occ_masks=runner.occ_masks, build_octree_pts=runner.build_octree_pts,
+        device="cpu")
+    with torch.cuda.stream(runner.stream):
+        cpu.field.load_state_dict({k: v.cpu() for k, v in
+                                   runner.field.state_dict().items()})
+    if not torch.equal(cpu.occ_grid.grid, runner.occ_grid.grid.cpu()):
+        raise AssertionError("mesh vs cpu: occupancy grids differ")
+    grids, orig = [], runner_mod.marching_tetrahedra
+
+    def spy(field, isolevel=0.0):
+        grids.append(np.array(field))
+        return orig(field, isolevel)
+
+    runner_mod.marching_tetrahedra = spy
+    try:
+        t0 = time.perf_counter()
+        mg = runner.extract_mesh()
+        t_card = time.perf_counter() - t0
+        mc = cpu.extract_mesh()
+    finally:
+        runner_mod.marching_tetrahedra = orig
+    err = float(np.abs(grids[0] - grids[1]).max())
+    nf = (len(mg.faces), len(mc.faces))
+    print(f"extract_mesh card vs cpu: grid {grids[0].shape}, "
+          f"{int((grids[0] < 1).sum())} occupied cells queried, SDF max abs "
+          f"err {err:.3e}, faces {nf[0]} vs {nf[1]}; {t_card:.3f} s on the "
+          f"card (query + marching)", flush=True)
+    if err > SDF_TOL or abs(nf[0] - nf[1]) > FACE_TOL * nf[1]:
+        raise AssertionError(f"extract_mesh card vs cpu: SDF err {err}, "
+                             f"faces {nf}")
+    return err
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this smoke run "
@@ -791,6 +1045,20 @@ def main():
     phase_tracker_main(seq, feats, fx)
     if "--profile" in sys.argv[1:]:
         phase_tracker_profile(seq, feats)
+    from bundlesdf_tpu_torch.config import default_track_config
+    cfg_t = default_track_config()
+    t, strict = phase_video(seq, feats, fx, "strict sync",
+                            online_nerf_config(cfg_t, sync_max_delay=0))
+    mesh_err = phase_mesh_vs_cpu(t.nerf)
+    del t
+    torch.cuda.empty_cache()
+    t, threaded = phase_video(
+        seq, feats, fx, "threaded",
+        online_nerf_config(cfg_t, sync_max_delay=4, async_host=True),
+        strict_ref=strict)
+    del t
+    if "--profile" in sys.argv[1:]:
+        phase_video_profile(seq, feats)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     # ms, plain_ms, library_ms and the bound: the rows of a real step
@@ -809,6 +1077,10 @@ def main():
         "group1_ms": real["group1_ms"],
         "zero_fill_ms": real["zero_fill_ms"],
         "atomics_by_level": real["atomics"],
+        "full_path_launches": strict["launches"],
+        "full_path_nof_steps": strict["nof_steps_total"],
+        "threaded_path_launches": threaded["launches"],
+        "extract_mesh_sdf_err": mesh_err,
         "uniform": {k: {m: v[m] for m in ("ms", "library_ms", "plain_ms",
                                           "bound_ms")}
                     for k, v in scatter.items()}}]}),

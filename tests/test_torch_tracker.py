@@ -100,15 +100,6 @@ def test_artifacts_written_the_same_way(runs):
                                   np.loadtxt(tt / "cam_K.txt"))
 
 
-def test_nof_start_raises_instead_of_skipping(tmp_path):
-    seq = cube_orbit_sequence(n_frames=2, H=60, W=80, full_angle=0.1)
-    t = BundleSdf(cfg_track=_cfg(tmp_path), start_nerf_keyframes=1,
-                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        t.run(seq["colors"][0], seq["depths"][0].copy(), seq["K"], "0000",
-              mask=seq["masks"][0])
-
-
 def test_resize_nearest_matches_cv2():
     cv2 = pytest.importorskip("cv2", reason="cv2 is the reference here")
     rng = np.random.default_rng(0)
