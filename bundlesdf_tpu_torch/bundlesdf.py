@@ -17,6 +17,12 @@ keyframes of lead; here either the tracker thread polls the batch chunk by
 chunk, or (`async_host`) a worker thread owns each batch. The runner's
 device work runs on its own CUDA stream in both forms. After `on_finish`,
 `.mesh` holds the final mesh in real-world coordinates.
+
+At `SPDLOG` >= 1 every frame leaves its artifacts (PNGs through
+`utils/png.py`, the keyframe registry as JSON that PyYAML reads too,
+`config.py::dump_yaml`);
+`run_global_nerf` trains the offline refine from them and writes the
+cleaned, real-world and textured meshes and the optimized poses.
 """
 from __future__ import annotations
 
@@ -32,8 +38,11 @@ import torch
 
 from bundlesdf_tpu_torch import resolve_device
 from bundlesdf_tpu_torch.config import (default_nerf_config,
-                                        default_track_config, load_config)
+                                        default_track_config, dump_config,
+                                        dump_yaml, load_config, load_yaml)
 from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
+from bundlesdf_tpu_torch.mesh.texture import bake_texture
+from bundlesdf_tpu_torch.nof.models import pose_array_matrices
 from bundlesdf_tpu_torch.nof.runner import NofRunner, preprocess_frame_data
 from bundlesdf_tpu_torch.scene.bounds import (compute_scene_bounds,
                                               compute_scene_bounds_frame,
@@ -42,20 +51,9 @@ from bundlesdf_tpu_torch.scene.bounds import (compute_scene_bounds,
 from bundlesdf_tpu_torch.tracker.bundler import Bundler
 from bundlesdf_tpu_torch.tracker.frame import Frame, FrameStatus
 from bundlesdf_tpu_torch.utils.common import (GLCAM_IN_CVCAM,
-                                              geodesic_distance_np)
-
-
-def resize_nearest(img, size):
-    """cv2.resize(img, size=(w, h), interpolation=cv2.INTER_NEAREST) in
-    numpy: destination pixel x reads source floor(x * W0 / w), clipped."""
-    img = np.asarray(img)
-    w, h = size
-    H0, W0 = img.shape[:2]
-    xs = np.minimum(np.floor(np.arange(w) * (W0 / w)).astype(np.int64),
-                    W0 - 1)
-    ys = np.minimum(np.floor(np.arange(h) * (H0 / h)).astype(np.int64),
-                    H0 - 1)
-    return img[ys[:, None], xs[None, :]]
+                                              geodesic_distance_np,
+                                              resize_nearest)
+from bundlesdf_tpu_torch.utils.png import read_png, write_png
 
 
 class BundleSdf:
@@ -508,7 +506,8 @@ class BundleSdf:
             # accumulated keyframes as its next batch
             if self.kf_to_nerf_list and self.cnt_nerf >= 0:
                 self._run_nerf_batch()
-        self.save_newframe_result(frame)
+        with self._stage("artifacts"):
+            self.save_newframe_result(frame)
 
     # ------------------------------------------------------------------
     # NOF batch (ref run_nerf bundlesdf.py:64-260, continual branch)
@@ -706,46 +705,43 @@ class BundleSdf:
             if frame.ref_frame_id >= 0:
                 f.write(f"ref_frame_id: {frame.ref_frame_id}\n")
         self._save_images(frame)
-        # keyframe registry for global refine (ref keyframes.yml)
-        import yaml
-
+        # keyframe registry for global refine (ref keyframes.yml), as JSON
+        # that PyYAML reads back unchanged
         reg = {kf.id_str: {"cam_in_ob": kf.pose_in_model.reshape(-1).tolist(),
                            "nerfed": bool(kf.nerfed)}
                for kf in self.bundler.keyframes}
-        with open(os.path.join(kf_dir, "keyframes.yml"), "w") as f:
-            yaml.safe_dump(reg, f)
+        dump_yaml(reg, os.path.join(kf_dir, "keyframes.yml"))
 
     def _save_images(self, frame: Frame):
-        import cv2
-
+        """The frame's PNG artifacts, pixel for pixel those the JAX package
+        writes with cv2 (RGB images stored as RGB)."""
         dd = self.debug_dir
-        cv2.imwrite(os.path.join(dd, "color", f"{frame.id_str}.png"),
-                    frame.color[..., ::-1])
+        write_png(os.path.join(dd, "color", f"{frame.id_str}.png"),
+                  frame.color)
         # mask-applied color (ref _color after invalidatePixelsByMask,
         # Bundler.cpp:1034-1039 color_segmented/)
         seg = frame.color.copy()
         seg[frame.fg_mask == 0] = 0
-        cv2.imwrite(os.path.join(dd, "color_segmented",
-                                 f"{frame.id_str}.png"), seg[..., ::-1])
-        cv2.imwrite(os.path.join(dd, "depth", f"{frame.id_str}.png"),
-                    (frame.depth_raw * 1000).astype(np.uint16))
-        cv2.imwrite(os.path.join(dd, "depth_filtered", f"{frame.id_str}.png"),
-                    (frame.depth * 1000).astype(np.uint16))
-        cv2.imwrite(os.path.join(dd, "mask", f"{frame.id_str}.png"),
-                    (frame.fg_mask > 0).astype(np.uint8) * 255)
+        write_png(os.path.join(dd, "color_segmented", f"{frame.id_str}.png"),
+                  seg)
+        write_png(os.path.join(dd, "depth", f"{frame.id_str}.png"),
+                  (frame.depth_raw * 1000).astype(np.uint16))
+        write_png(os.path.join(dd, "depth_filtered", f"{frame.id_str}.png"),
+                  (frame.depth * 1000).astype(np.uint16))
+        write_png(os.path.join(dd, "mask", f"{frame.id_str}.png"),
+                  (frame.fg_mask > 0).astype(np.uint8) * 255)
         # inverse-depth visualization (ref Bundler.cpp:1044-1055)
         with np.errstate(divide="ignore"):
             dv = np.where(frame.depth >= 0.1, 1.0 / frame.depth / 10 * 255, 0)
-        cv2.imwrite(os.path.join(dd, "depth_vis", f"{frame.id_str}.png"),
-                    np.clip(dv, 0, 255).astype(np.uint8))
+        write_png(os.path.join(dd, "depth_vis", f"{frame.id_str}.png"),
+                  np.clip(dv, 0, 255).astype(np.uint8))
         # normal map packed to [0,255] rgb (ref Bundler.cpp:1016-1032)
         n = frame.normal_map
         norm = np.linalg.norm(n, axis=-1, keepdims=True)
         n = np.where((frame.depth[..., None] >= 0.1) & (norm > 1e-8),
                      n / np.maximum(norm, 1e-8), 0.0)
-        n_img = ((n + 1) / 2 * 255).astype(np.uint8)
-        cv2.imwrite(os.path.join(dd, "normal", f"{frame.id_str}.png"),
-                    n_img[..., ::-1])
+        write_png(os.path.join(dd, "normal", f"{frame.id_str}.png"),
+                  ((n + 1) / 2 * 255).astype(np.uint8))
 
     # ------------------------------------------------------------------
     def on_finish(self):
@@ -766,3 +762,143 @@ class BundleSdf:
             if mesh is not None:
                 self.mesh = self.nerf.mesh_to_real_world(mesh,
                                                          pose_offset=offset)
+
+    # ------------------------------------------------------------------
+    # offline global refine (ref run_global_nerf bundlesdf.py:636-766)
+    # ------------------------------------------------------------------
+    def run_global_nerf(self, reader=None, get_texture=False, tex_res=1024,
+                        out_dir=None):
+        """Train a NOF from scratch on the keyframes the online run saved
+        (`SPDLOG` >= 1: `cam_K.txt`, the latest `keyframes.yml`, the
+        `color/`, `depth_filtered/` and `mask/` PNGs), on its own CUDA
+        stream; then extract, clean and (@get_texture) texture the mesh.
+        Writes `config.yml`, `mesh_cleaned.obj`, `mesh_real_world.obj` and
+        `optimized_poses.txt` into @out_dir (default
+        `<debug_dir>/nerf_with_bundletrack_online`) and
+        `<debug_dir>/textured_mesh.obj`. Returns the real-world mesh;
+        `refine_stats` holds the step count and the stage seconds.
+        @reader is accepted and unused, as in the JAX package: the images
+        come from the artifacts."""
+        dd = self.debug_dir
+        self.K = np.loadtxt(os.path.join(dd, "cam_K.txt")).reshape(3, 3)
+        # latest frame stamp with a keyframe registry
+        stamps = sorted([d for d in os.listdir(dd)
+                         if os.path.isdir(os.path.join(dd, d))
+                         and os.path.exists(os.path.join(dd, d,
+                                                         "keyframes.yml"))])
+        if not stamps:
+            raise FileNotFoundError("no keyframes.yml found; run online first")
+        reg = load_yaml(os.path.join(dd, stamps[-1], "keyframes.yml"))
+
+        ids = sorted(reg.keys())
+        n_train = int(self.cfg_nerf.get("n_train_image", 300))
+        if len(ids) > n_train:
+            sel = np.linspace(0, len(ids) - 1, n_train).astype(int)
+            ids = [ids[i] for i in sel]
+
+        t_read = time.perf_counter()
+        rgbs, depths, masks, poses = [], [], [], []
+        for id_str in ids:
+            rgbs.append(read_png(os.path.join(dd, "color", f"{id_str}.png")))
+            depths.append(read_png(os.path.join(
+                dd, "depth_filtered", f"{id_str}.png")).astype(np.float32)
+                / 1000.0)
+            m = read_png(os.path.join(dd, "mask", f"{id_str}.png"))
+            masks.append((m > 0).astype(np.uint8))
+            poses.append(np.asarray(reg[id_str]["cam_in_ob"],
+                                    np.float64).reshape(4, 4))
+        rgbs = np.array(rgbs)
+        depths = np.array(depths)
+        masks = np.array(masks)
+        cam_in_obs = np.array(poses)
+        glcam_in_obs = cam_in_obs @ GLCAM_IN_CVCAM
+
+        cfg = copy.deepcopy(self.cfg_nerf)
+        if self.sc_factor is None:
+            sc_factor, translation, pcd_real, pcd_norm = compute_scene_bounds(
+                rgbs, depths, masks, glcam_in_obs, self.K, use_mask=True,
+                eps=cfg["dbscan_eps"],
+                min_samples=cfg["dbscan_eps_min_samples"])
+            self.sc_factor, self.translation = float(sc_factor), translation
+        else:
+            _, _, pcd_real, pcd_norm = compute_scene_bounds(
+                rgbs, depths, masks, glcam_in_obs, self.K, use_mask=True,
+                translation_cvcam=np.asarray(self.translation),
+                sc_factor=self.sc_factor, eps=cfg["dbscan_eps"],
+                min_samples=cfg["dbscan_eps_min_samples"])
+        cfg["sc_factor"] = self.sc_factor
+        cfg["translation"] = np.asarray(self.translation)
+
+        rgbs_p, depths_p, masks_p, normals_p, poses_p = preprocess_frame_data(
+            rgbs, depths, masks, None, glcam_in_obs.copy(), self.sc_factor,
+            np.asarray(self.translation))
+        self.nerf = NofRunner(cfg, rgbs_p, depths_p, masks_p, normals_p,
+                              poses_p, self.K, build_octree_pts=pcd_norm,
+                              device=self.device)
+        t_train = time.perf_counter()
+        # train()'s N_iters = n_step + 1 steps; the first chunk (the
+        # kernel's build, the allocator's first blocks) is timed apart
+        # from the refine rate, as the reference times its compile apart
+        n_total = int(cfg["n_step"]) + 1
+        n_first = min(self.nerf.scan_chunk, n_total)
+        self.nerf.train(n_steps=n_first)
+        t0 = time.perf_counter()
+        self.nerf.train(n_steps=n_total - n_first)   # ends with a host pull
+        dt = time.perf_counter() - t0
+        n_rest = n_total - n_first
+        logging.info(
+            f"global refine: {n_rest} steps in {dt:.1f}s = "
+            f"{n_rest / max(dt, 1e-9):.2f} steps/s "
+            f"({dt / max(n_rest, 1) * 1e3:.1f} ms/step, first chunk of "
+            f"{n_first} {t0 - t_train:.1f}s, {cfg['num_levels']} levels, "
+            f"T=2^{cfg['log2_hashmap_size']})")
+
+        t_mesh = time.perf_counter()
+        mesh = self.nerf.extract_mesh(voxel_size=cfg["mesh_resolution"])
+        out_dir = out_dir or os.path.join(dd, "nerf_with_bundletrack_online")
+        os.makedirs(out_dir, exist_ok=True)
+        # config-as-artifact with learned normalization (ref
+        # bundlesdf.py:731-737): postprocess_mesh reloads sc/translation
+        dump_config({**cfg, "translation": np.asarray(self.translation)
+                     .tolist(), "sc_factor": float(self.sc_factor)},
+                    os.path.join(out_dir, "config.yml"))
+        t_tex = t_tex_end = None
+        if mesh is not None:
+            mesh.merge_vertices()
+            mesh.keep_biggest_component()
+            mesh.export(os.path.join(out_dir, "mesh_cleaned.obj"))
+            _, offset = self.nerf.get_optimized_poses_in_real_world()
+            if get_texture:
+                # bake per-frame colors in normalized space with the NOF's
+                # corrected poses (ref mesh_texture_from_train_images
+                # nerf_runner.py:1468-1542, called bundlesdf.py:763)
+                t_tex = time.perf_counter()
+                with self.nerf._on_stream(), torch.no_grad():
+                    corr = pose_array_matrices(
+                        self.nerf.field.pose_array,
+                        torch.arange(len(self.nerf.poses),
+                                     device=self.nerf.device),
+                        self.nerf.spec.max_trans,
+                        self.nerf.spec.max_rot_deg).cpu().numpy()
+                tex_mesh = bake_texture(
+                    mesh, rgbs, masks, self.nerf.poses, self.K,
+                    pose_corrections=corr, tex_res=tex_res)
+                self.nerf.mesh_to_real_world(tex_mesh, pose_offset=offset)
+                tex_mesh.export(os.path.join(dd, "textured_mesh.obj"))
+                t_tex_end = time.perf_counter()
+            world = self.nerf.mesh_to_real_world(mesh.copy(),
+                                                 pose_offset=offset)
+            world.export(os.path.join(out_dir, "mesh_real_world.obj"))
+            self.mesh = world
+        optimized, _ = self.nerf.get_optimized_poses_in_real_world()
+        np.savetxt(os.path.join(out_dir, "optimized_poses.txt"),
+                   optimized.reshape(-1, 4))
+        t_end = time.perf_counter()
+        tex_s = 0.0 if t_tex is None else t_tex_end - t_tex
+        self.refine_stats = {
+            "keyframes": len(ids), "steps": n_total, "timed_steps": n_rest,
+            "train_s": dt, "steps_per_s": n_rest / max(dt, 1e-9),
+            "first_chunk_s": t0 - t_train,
+            "read_prep_s": t_train - t_read,
+            "mesh_s": t_end - t_mesh - tex_s, "texture_s": tex_s}
+        return self.mesh

@@ -10,12 +10,22 @@ A copy of `bundlesdf_tpu/config.py`, so config files and dicts load
 unchanged in both packages. Keys that only steer the JAX package's TPU
 machinery (`scatter_*`, `tier_frac`, `k_runs`, `trace_factor`,
 `nerf_device`, `dp_devices`, `assoc_layout`, ...) are accepted and ignored
-by the port. PyYAML is imported only where a file is read or written.
+by the port.
+
+Config files and the keyframe registry are written as JSON (`dump_yaml`)
+that PyYAML's `safe_load` also reads back to the same values, bit for bit:
+every float is written with a `.` in its mantissa (PyYAML reads `1e-05` as
+a string), and NaN or infinities, which have no such form, are refused.
+`load_yaml` reads such a file with `json`; PyYAML is imported only for a
+file that is not JSON (the GPU machine has no PyYAML).
 """
 from __future__ import annotations
 
 import copy
+import json
+import math
 import os
+import re
 
 import numpy as np
 
@@ -304,11 +314,7 @@ def load_config(path: str | None, defaults: dict) -> dict:
     """Load a YAML config over defaults (unknown keys are kept)."""
     cfg = copy.deepcopy(defaults)
     if path and os.path.exists(path):
-        import yaml
-
-        with open(path) as f:
-            user = yaml.safe_load(f) or {}
-        _deep_update(cfg, user)
+        _deep_update(cfg, load_yaml(path) or {})
     return cfg
 
 
@@ -323,13 +329,97 @@ def load_nerf_config(path: str | None = None) -> dict:
 def dump_config(cfg: dict, path: str) -> None:
     """Dump a per-run config copy (config-as-artifact resume,
     ref run_custom.py:23-62, bundlesdf.py:249-257)."""
-    import yaml
-
     out = {}
     for k, v in cfg.items():
         if isinstance(v, np.ndarray):
             v = v.tolist()
         out[k] = v
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w") as f:
-        yaml.safe_dump(out, f, default_flow_style=None, sort_keys=False)
+    dump_yaml(out, path)
+
+
+# ---------------------------------------------------------------------------
+# YAML without PyYAML: JSON that PyYAML reads back exactly
+# ---------------------------------------------------------------------------
+
+# characters a YAML double-quoted scalar may hold as they are (PyYAML's
+# printable set, less the line breaks NEL, LS and PS)
+_YAML_PLAIN_CHAR = re.compile(
+    "[\x20-\x7e\xa0-\u2027\u202a-\ud7ff\ue000-\ufffd\U00010000-\U0010ffff]")
+_SHORT_ESCAPES = {"\\": "\\\\", '"': '\\"', "\n": "\\n",
+                  "\t": "\\t", "\r": "\\r"}
+
+
+def _yaml_str(s: str) -> str:
+    """A double-quoted scalar that JSON and YAML decode alike."""
+    out = []
+    for ch in s:
+        if ch in _SHORT_ESCAPES:
+            out.append(_SHORT_ESCAPES[ch])
+        elif _YAML_PLAIN_CHAR.match(ch):
+            out.append(ch)
+        else:
+            out.append(f"\\u{ord(ch):04x}")
+    return '"' + "".join(out) + '"'
+
+
+def _yaml_float(v: float) -> str:
+    if not math.isfinite(v):
+        raise ValueError(f"dump_yaml: cannot write the float {v}")
+    mant, e, exp = repr(v).partition("e")   # shortest round-trip digits
+    if "." not in mant:
+        mant += ".0"
+    return mant + e + exp
+
+
+def _yaml_flow(v) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, (bool, np.bool_)):
+        return "true" if v else "false"
+    if isinstance(v, (int, np.integer)):
+        return str(int(v))
+    if isinstance(v, (float, np.floating)):
+        return _yaml_float(float(v))
+    if isinstance(v, str):
+        return _yaml_str(v)
+    if isinstance(v, np.ndarray):
+        v = v.tolist()
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_yaml_flow(x) for x in v) + "]"
+    if isinstance(v, dict):
+        return "{" + ", ".join(_yaml_item(k, x) for k, x in v.items()) + "}"
+    raise TypeError(f"dump_yaml: cannot write {type(v).__name__} {v!r}")
+
+
+def _yaml_item(k, v) -> str:
+    if not isinstance(k, str):
+        raise TypeError(f"dump_yaml: keys must be str, got {k!r}")
+    return f"{_yaml_str(k)}: {_yaml_flow(v)}"
+
+
+def dumps_yaml(obj) -> str:
+    """@obj (dicts with str keys, lists, tuples, arrays, str, int, float,
+    bool, None) as YAML text; a top-level dict gets one key per line."""
+    if isinstance(obj, dict) and obj:
+        items = [_yaml_item(k, v) for k, v in obj.items()]
+        return "{" + ",\n ".join(items) + "}\n"
+    return _yaml_flow(obj) + "\n"
+
+
+def dump_yaml(obj, path: str) -> None:
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(dumps_yaml(obj))
+
+
+def load_yaml(path: str):
+    """Read a YAML file: what `dump_yaml` writes (JSON) without PyYAML,
+    anything else through `yaml.safe_load`."""
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    try:
+        return json.loads(text)
+    except ValueError:
+        import yaml
+
+        return yaml.safe_load(text)

@@ -3,7 +3,7 @@
 Copy of `bundlesdf_tpu/mesh/core.py`, which replaces the trimesh usage in
 the reference (`Utils.py:278-298` trimesh_split/trimesh_clean, mesh exports
 in `nerf_runner.py` / `bundlesdf.py:747-766`). Host-side numpy and scipy
-(imageio only where a textured mesh is written); meshes are small
+(a textured mesh's image goes through `utils/png.py`); meshes are small
 artifacts, not hot-path data.
 """
 from __future__ import annotations
@@ -13,6 +13,8 @@ import os
 import numpy as np
 from scipy.sparse import coo_matrix
 from scipy.sparse.csgraph import connected_components
+
+from bundlesdf_tpu_torch.utils.png import write_png
 
 
 class Mesh:
@@ -180,8 +182,7 @@ class Mesh:
         if has_uv and self.texture is not None:
             mtl_path = os.path.splitext(path)[0] + ".mtl"
             tex_path = os.path.splitext(path)[0] + ".png"
-            import imageio.v2 as imageio
-            imageio.imwrite(tex_path, self.texture)
+            write_png(tex_path, np.asarray(self.texture, np.uint8))
             with open(mtl_path, "w") as f:
                 f.write("newmtl material0\nKa 1 1 1\nKd 1 1 1\n"
                         f"map_Kd {os.path.basename(tex_path)}\n")

@@ -1,25 +1,34 @@
 """ctypes binding to the repo's native host library (`native/src/*.cpp`):
-marching tetrahedra, the twin of the numpy path in `mesh/marching.py`.
+the z-buffer rasterizer and marching tetrahedra, twins of the numpy paths
+in `mesh/render.py` and `mesh/marching.py`.
 
-Port of the marching half of `bundlesdf_tpu/native.py` (the rasterizer
-binding waits for `mesh/render.py`). The library is built on first use with
-`make -C native` into the git-ignored `native/build/`, through a private
-build directory and an atomic rename, so concurrent first users never load
-a half-written file. Without a toolchain the caller falls back to numpy.
+Port of `bundlesdf_tpu/native.py`. The port builds its own copy of the
+library at first use, with `make -C native BUILD=<private dir>`, and
+renames the finished file into `bundlesdf_tpu_torch/csrc/build/` under a
+name keyed by the sources. Nothing else writes that path, and a file only
+appears there through that rename, so the loader never opens a library
+that is still being written (the JAX package builds into `native/build/`
+in place). Without a toolchain the callers take their numpy paths.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
+import hashlib
 import logging
 import os
+import shutil
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "build", "libbundlesdf_native.so")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                         "build")
+_LIB_NAME = "libbundlesdf_native.so"
 
 _lib = None
 _tried = False
@@ -28,13 +37,27 @@ _tried = False
 _lock = threading.Lock()
 
 
-def _build():
-    tmp = f"build/tmp.{os.getpid()}.{threading.get_ident()}"
-    subprocess.run(["make", "-C", _NATIVE_DIR, f"BUILD={tmp}"], check=True,
-                   capture_output=True, timeout=300)
-    os.replace(os.path.join(_NATIVE_DIR, tmp, os.path.basename(_LIB_PATH)),
-               _LIB_PATH)
-    os.rmdir(os.path.join(_NATIVE_DIR, tmp))
+def library_path() -> str:
+    """Where the port's build of the library lives: one file per version of
+    `native/Makefile` and `native/src/*`."""
+    h = hashlib.sha1()
+    for f in [os.path.join(_NATIVE_DIR, "Makefile")] + sorted(
+            glob.glob(os.path.join(_NATIVE_DIR, "src", "*"))):
+        with open(f, "rb") as fh:
+            h.update(os.path.basename(f).encode() + fh.read())
+    return os.path.join(BUILD_DIR, f"libbundlesdf_native_{h.hexdigest()[:12]}"
+                                   f".so")
+
+
+def _build(path):
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="native.", dir=BUILD_DIR)
+    try:
+        subprocess.run(["make", "-C", _NATIVE_DIR, f"BUILD={tmp}"], check=True,
+                       capture_output=True, timeout=300)
+        os.replace(os.path.join(tmp, _LIB_NAME), path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _load():
@@ -43,19 +66,23 @@ def _load():
         if _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_LIB_PATH):
-            try:
-                _build()
-            except (OSError, subprocess.SubprocessError) as e:
-                logging.info(f"native build unavailable ({e}); using the "
-                             "numpy marching path")
-                return None
         try:
-            lib = ctypes.CDLL(_LIB_PATH)
-        except OSError as e:
-            logging.info(f"native load failed ({e}); using the numpy "
-                         "marching path")
+            path = library_path()
+            if not os.path.exists(path):
+                _build(path)
+            lib = ctypes.CDLL(path)
+        except (OSError, subprocess.SubprocessError) as e:
+            logging.info(f"native library unavailable ({e}); using the numpy "
+                         "marching and rasterizer paths")
             return None
+        lib.rasterize_mesh.argtypes = [
+            ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
+            ctypes.c_int, ctypes.c_int, ctypes.c_double,
+            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_float)]
+        lib.rasterize_mesh.restype = None
         lib.marching_tet_run.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_float, ctypes.POINTER(ctypes.c_int64),
@@ -70,6 +97,32 @@ def _load():
 
 def available() -> bool:
     return _load() is not None
+
+
+def rasterize_native(vertices, faces, K, ob_in_cam, H, W, znear=0.001):
+    """Native twin of mesh.render.rasterize; returns the same dict, or None
+    when the library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    vertices = np.ascontiguousarray(vertices, np.float64)
+    faces = np.ascontiguousarray(faces, np.int64)
+    K = np.ascontiguousarray(K, np.float64)
+    T = np.ascontiguousarray(ob_in_cam, np.float64)
+    depth = np.zeros((H, W), np.float32)
+    face_id = np.full((H, W), -1, np.int32)
+    bary = np.zeros((H, W, 3), np.float32)
+    lib.rasterize_mesh(
+        vertices.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        len(vertices),
+        faces.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(faces),
+        K.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        T.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        H, W, znear,
+        depth.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        face_id.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        bary.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    return {"depth": depth, "face_id": face_id, "bary": bary}
 
 
 def marching_tetrahedra_native(field, isolevel=0.0):

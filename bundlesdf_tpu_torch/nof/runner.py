@@ -46,6 +46,7 @@ from bundlesdf_tpu_torch.ops.occupancy import (OccupancyGrid,
 from bundlesdf_tpu_torch.scene.bounds import voxel_downsample
 from bundlesdf_tpu_torch.utils.common import (BAD_COLOR, BAD_DEPTH,
                                               GLCAM_IN_CVCAM)
+from bundlesdf_tpu_torch.utils.png import write_png
 from bundlesdf_tpu_torch.utils.se3 import se3_exp_np
 from bundlesdf_tpu_torch.utils.transfer import HostPull
 
@@ -567,10 +568,7 @@ class NofRunner:
                 poses.reshape(-1, 4))
 
     def _save_debug_render(self, save_dir):
-        """Rendered-vs-GT color panel for the last training frame (written
-        with cv2, imported here: only this debug hook needs it)."""
-        import cv2
-
+        """Rendered-vs-GT color panel for the last training frame."""
         fid = len(self.images) - 1
         out, idx = self.render_frame(fid)
         if len(idx) == 0:
@@ -584,9 +582,9 @@ class NofRunner:
         canvas[vs, us] = np.clip(out["rgb_map"] * 255, 0, 255).astype(np.uint8)
         gt = np.clip(self.images[fid] * 255, 0, 255).astype(np.uint8)
         os.makedirs(save_dir, exist_ok=True)
-        cv2.imwrite(os.path.join(save_dir,
-                                 f"image_step_{self.global_step:07d}.png"),
-                    np.concatenate([canvas, gt], axis=1)[..., ::-1])
+        write_png(os.path.join(save_dir,
+                               f"image_step_{self.global_step:07d}.png"),
+                  np.concatenate([canvas, gt], axis=1))
 
     # -- feature-match BA in ray space (ref make_key_ray_ids + train_BA
     # nerf_runner.py:866-976): offline pose refinement that pulls the

@@ -67,3 +67,18 @@ def geodesic_distance_np(R1, R2):
     (ref Utils.py:201-205)."""
     cos = (np.trace(R1 @ R2.T) - 1.0) / 2.0
     return float(np.arccos(np.clip(cos, -1.0, 1.0)))
+
+
+def resize_nearest(img, size):
+    """cv2.resize(img, size=(w, h), interpolation=cv2.INTER_NEAREST) in
+    numpy: destination pixel x reads source floor(x * (1 / (w / W0))),
+    clipped, with the scale rounded as cv2 rounds it (W0 / w itself can
+    round the other way and move a pixel where x * W0 / w is whole)."""
+    img = np.asarray(img)
+    w, h = size
+    H0, W0 = img.shape[:2]
+    xs = np.minimum(np.floor(np.arange(w) * (1.0 / (w / W0))).astype(
+        np.int64), W0 - 1)
+    ys = np.minimum(np.floor(np.arange(h) * (1.0 / (h / H0))).astype(
+        np.int64), H0 - 1)
+    return img[ys[:, None], xs[None, :]]

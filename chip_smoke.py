@@ -9,9 +9,12 @@ Phases, one printed line each (or a few), any failure exits non-zero:
   3. kernel vs plain PyTorch scatter at the training step's shapes
      (12.58M rows into the 2,462,164-row table): uniform random rows, and
      the rows and values of one real training step, recorded on their way
-     into the kernel; times of the kernel (group 32 and group 1), of
-     `index_add_` and of the plain version, in turns, beside the bound,
-     and the atomics the kernel issues by hash-grid level;
+     into the kernel, each row within the bound that float32 sums in
+     another order obey (on a real step's rows, per level, a planted
+     fault -- dropped atomics -- must fail that check); times of the
+     kernel (group 32 and group 1), of `index_add_` and of the plain
+     version, in turns, beside the bound, and the atomics the kernel
+     issues by hash-grid level;
   4. hash-grid table/point gradients through the kernel vs the same graph
      with PyTorch's own scatter; one small training step on the card vs
      the same step on the CPU (the CPU path is the one held against the
@@ -20,6 +23,8 @@ Phases, one printed line each (or a few), any failure exits non-zero:
      the default) at the online workload (bench.py's configuration) trains
      10 + 50 steps; steps/s, memory, losses, and the kernel's launches
      (one a step, with group L*8);
+     (before phase 6, the host reads a frame of the orbit written as a
+     dataset folder through `YcbineoatReader`, Up and Paeth rows, timed);
   6. tracker components on the card vs the CPU at the steady 480x640
      shapes: the depth chain into the pool, `orb_lift_ransac_slots` (16
      pairs, 2048 features, injected RANSAC draws), `bundle_adjust_pooled`
@@ -37,17 +42,31 @@ Phases, one printed line each (or a few), any failure exits non-zero:
      scatter kernel's launches (= NOF steps) and the stream it ran on,
      ADD/ADD-S/AUC and the mesh Chamfer by `eval/benchmark.py`; then the
      final runner's `extract_mesh` against a CPU runner with its weights;
-  9. the same run threaded (`sync_max_delay` 4, `async_host`);
- 10. a JSON line of per-kernel results, then the final status line.
---profile adds torch.profiler tables of 5 NOF steps, of 5 tracked frames
-and of the online loop's first NOF batch. Needs a CUDA card and nvcc;
-refuses to run on the CPU.
+  9. the same run threaded (`sync_max_delay` 4, `async_host`), at
+     `SPDLOG` 1: every frame writes its PNGs and `keyframes.yml` (timed
+     as the `artifacts` stage) into a temporary folder;
+ 10. the offline refine: `run_custom.run_one_video_global_nerf` (the
+     `--mode global_refine` entry point) on phase 9's artifacts at the
+     refine config of `run_custom.py` (16 levels, finest 256, T=2^24,
+     2048 rays x (64 + 256) samples, n_step 2000, mesh_resolution 0.002,
+     texture 512): steps/s, memory, the kernel's launches (= steps) and
+     stream, every artifact, the marching and rasterizer paths (native),
+     the refined mesh's Chamfer and the optimized poses' ADD beside the
+     online run's, the texture's filled share; then the kernel against
+     its plain version on the rows of one refine step (83,886,080
+     entries into 39,601,891 rows), timed as in phase 3;
+ 11. a JSON line of per-kernel results, then the final status line.
+--profile adds torch.profiler tables of 5 NOF steps, of 5 tracked frames,
+of 20 refine steps and of the online loop's first NOF batch. Needs a CUDA
+card, nvcc and g++ (the native library); refuses to run on the CPU.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -163,18 +182,75 @@ def _scatter_case(n_rows, C, dtype, gen):
     return vals, rows
 
 
-def _check_scatter(name, vals, rows, n_rows, group):
-    """Kernel vs plain; f32 atomics in another order are the only
-    difference: atol 1e-4, rtol 1e-5. Returns the max abs error."""
+def _row_tolerance(vals, rows, n_rows):
+    """How far two float32 sums of each row's entries, taken in different
+    orders, may lie apart: a sum of n terms in any order is within
+    (n - 1) u sum|terms| of the exact sum (u = 2^-24), so two such sums
+    are within 2 n_r u S_r, with n_r the row's entries and S_r the sum of
+    their magnitudes (per channel). A row with one entry must match
+    exactly; an entry lost or sent to another row shows unless it is
+    below ~1e-7 n_r of its row's magnitude."""
+    from bundlesdf_tpu_torch.ops.scatter import scatter_rows_torch
+    ones = torch.ones((rows.shape[0], 1), device=rows.device)
+    n = scatter_rows_torch(ones, rows, n_rows)
+    return 2.0 ** -23 * 1.01 * n * scatter_rows_torch(vals.abs(), rows, n_rows)
+
+
+def _check_scatter(name, vals, rows, n_rows, group, tol=None):
+    """Kernel vs plain, each row within `_row_tolerance`. Returns the max
+    abs error and the kernel's output."""
     from bundlesdf_tpu_torch.ops.scatter import scatter_rows, scatter_rows_torch
     out = scatter_rows(vals, rows, n_rows, group=group)
     ref = scatter_rows_torch(vals, rows, n_rows)
-    torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    if not torch.allclose(out, ref, atol=1e-4, rtol=1e-5):
+    tol = _row_tolerance(vals, rows, n_rows) if tol is None else tol
+    diff = (out - ref).abs()
+    err, bad = float(diff.max()), int((diff > tol).sum())
+    if bad:
         raise AssertionError(f"scatter {name} group {group}: kernel != "
-                             f"plain, max abs err {err}")
-    return err
+                             f"plain in {bad} row-channels beyond the "
+                             f"summation-order bound, max abs err {err}")
+    return err, out
+
+
+def check_by_level(name, vals, rows, n_rows, group, out, tol, layout,
+                   every=1000):
+    """The check's power on a real step, level by level: the rows' value
+    range (max and median |plain| of the nonzero rows), the kernel's worst
+    error against the tolerance, and a planted fault that must fail the
+    check -- every @every-th sample's 8 corner entries of the level
+    dropped from the kernel's output, as a kernel losing those atomics
+    would. Returns one dict a level."""
+    from bundlesdf_tpu_torch.ops.scatter import scatter_rows_torch
+    ref = scatter_rows_torch(vals, rows, n_rows)
+    n_samples = rows.shape[0] // group
+    base = torch.arange(0, n_samples, every, device=rows.device) * group
+    levels = []
+    for lvl, (_, _, n, off) in enumerate(layout):
+        sl = slice(off, off + n)
+        r, d, t = ref[sl], (out[sl] - ref[sl]).abs(), tol[sl]
+        nz = r[r != 0].abs()
+        m = (base[:, None] + lvl * 8
+             + torch.arange(8, device=rows.device)).reshape(-1)
+        lost = scatter_rows_torch(vals[m], rows[m], n_rows)[sl]
+        caught = int(((out[sl] - lost - r).abs() > t).sum())
+        levels.append({
+            "max_ref": float(nz.max()) if nz.numel() else 0.0,
+            "median_ref": float(nz.median()) if nz.numel() else 0.0,
+            "max_err": float(d.max()),
+            "err_over_tol": float((d / t.clamp_min(1e-38)).max()),
+            "fault_row_channels": caught})
+    print(f"scatter {name} check by level (max|plain| / median|plain| of "
+          f"nonzero rows, max err, max err/tol, row-channels failing with "
+          f"every {every}th sample's corners dropped): " + "; ".join(
+              f"L{i} {v['max_ref']:.3e}/{v['median_ref']:.3e} "
+              f"{v['max_err']:.1e} {v['err_over_tol']:.3f} "
+              f"{v['fault_row_channels']}" for i, v in enumerate(levels)),
+          flush=True)
+    blind = [i for i, v in enumerate(levels) if not v["fault_row_channels"]]
+    if blind:
+        raise AssertionError(f"scatter {name}: the check misses dropped "
+                             f"atomics on levels {blind}")
+    return levels
 
 
 def phase_scatter(n_rows):
@@ -187,7 +263,7 @@ def phase_scatter(n_rows):
                            ("c2_bf16", 2, torch.bfloat16),
                            ("c16_bf16", 16, torch.bfloat16)):
         vals, rows = _scatter_case(n_rows, C, dtype, gen)
-        err = _check_scatter(name, vals, rows, n_rows, 1)
+        err, _ = _check_scatter(name, vals, rows, n_rows, 1)
         t = _in_turns({
             "ms": lambda: scatter_rows(vals, rows, n_rows),
             "library_ms": _index_add(vals, rows, n_rows),
@@ -236,20 +312,30 @@ def run_atomics(rows, n_rows, group, samples):
     return (new & (r >= 0) & (r < n_rows)).sum(0)
 
 
-def phase_scatter_real(runner):
-    """The kernel on the rows of one real training step: group L*8 (runs
-    summed in registers) and group 1 (one atomic per entry), index_add_ and
-    the plain version, in turns; the bound and the atomics by level."""
+def phase_scatter_real(runner, name="real step"):
+    """The kernel on the rows of one real training step of @runner: group
+    L*8 (runs summed in registers) and group 1 (one atomic per entry),
+    index_add_ and the plain version, in turns; the bound and the atomics
+    by level."""
     from bundlesdf_tpu_torch.ops.scatter import (RUN_SAMPLES, scatter_rows,
                                                  scatter_rows_torch)
     vals, rows, n_rows, group = record_step(runner)
     L = runner.spec.grid.n_levels
-    if group != L * 8 or vals.shape != (M_ROWS, 2):
-        raise AssertionError(f"real step: group {group}, vals "
-                             f"{tuple(vals.shape)}; expected {L * 8} and "
-                             f"({M_ROWS}, 2)")
-    errs = [_check_scatter("real step", vals, rows, n_rows, g)
-            for g in (group, 1)]
+    m_rows = runner.tcfg.n_rand * (runner.rcfg.n_samples
+                                   + runner.rcfg.n_samples_around_depth) * L * 8
+    if group != L * 8 or vals.shape != (m_rows, 2) \
+            or n_rows != runner.spec.grid.total_rows:
+        raise AssertionError(f"{name}: group {group}, vals "
+                             f"{tuple(vals.shape)}, {n_rows} rows; expected "
+                             f"{L * 8}, ({m_rows}, 2), "
+                             f"{runner.spec.grid.total_rows}")
+    tol = _row_tolerance(vals, rows, n_rows)
+    err_g, out = _check_scatter(name, vals, rows, n_rows, group, tol)
+    err_1, _ = _check_scatter(name, vals, rows, n_rows, 1, tol)
+    errs = [err_g, err_1]
+    by_level = check_by_level(name, vals, rows, n_rows, group, out, tol,
+                              runner.spec.grid.layout())
+    del out, tol
     adds = run_atomics(rows, n_rows, group, 1).view(L, 8).sum(1)
     runs = run_atomics(rows, n_rows, group, RUN_SAMPLES).view(L, 8).sum(1)
     t = _in_turns({
@@ -264,8 +350,10 @@ def phase_scatter_real(runner):
     res = {"max_abs_err": max(errs), **t, "bound_ms": bound_ms,
            "bound_by": bound_by,
            "bound_share": bound_ms / t["real_step_ms"],
-           "row_adds": adds.tolist(), "atomics": runs.tolist()}
-    print(f"scatter real step: M={rows.shape[0]} C={vals.shape[1]} "
+           "row_adds": adds.tolist(), "atomics": runs.tolist(),
+           "check_by_level": by_level,
+           "m_rows": m_rows, "n_rows": n_rows, "group": group}
+    print(f"scatter {name}: M={rows.shape[0]} C={vals.shape[1]} "
           f"{vals.dtype} n_rows={n_rows} group={group} max_abs_err "
           f"{max(errs):.3e}; kernel group {group} "
           f"{t['real_step_ms']:.4f} ms, group 1 {t['group1_ms']:.4f} ms, "
@@ -273,7 +361,7 @@ def phase_scatter_real(runner):
           f"ms (each with the output's zero fill, {t['zero_fill_ms']:.4f} "
           f"ms alone); bound {bound_ms:.4f} ms ({bound_by}), "
           f"{res['bound_share']:.1%} of it reached", flush=True)
-    print(f"scatter real step by level: in-range row-adds "
+    print(f"scatter {name} by level: in-range row-adds "
           f"{adds.tolist()} (sum {int(adds.sum())}); vector atomics at group "
           f"{group} {runs.tolist()} (sum {int(runs.sum())}, "
           f"{RUN_SAMPLES}-sample tiles)", flush=True)
@@ -493,6 +581,45 @@ def tracker_inputs():
           f"{time.perf_counter() - t0:.2f} s, {int(fx['counts'].min())}-"
           f"{int(fx['counts'].max())} ORB features a frame", flush=True)
     return seq, feats, fx
+
+
+def phase_reader(seq, n=5):
+    """Host ms a frame of `YcbineoatReader.get_color + get_depth +
+    get_mask` (what `run_custom.run_one_video` reads a frame with) on @n
+    frames of the orbit written as a dataset folder, every PNG row Up (the
+    port's own writer) and then Paeth (the slowest rows to decode, which
+    libpng's adaptive filter choice favours); the frames read back equal."""
+    from bundlesdf_tpu_torch.datasets import YcbineoatReader
+    from bundlesdf_tpu_torch.utils.png import write_png
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="bsdf_reader_") as tmp:
+        for filt, name in ((2, "up"), (4, "paeth")):
+            root = os.path.join(tmp, name)
+            for sub in ("rgb", "depth", "masks"):
+                os.makedirs(os.path.join(root, sub))
+            np.savetxt(os.path.join(root, "cam_K.txt"), seq["K"])
+            depth_mm = np.round(seq["depths"][:n] * 1e3).astype(np.uint16)
+            for i in range(n):
+                f = f"{seq['id_strs'][i]}.png"
+                write_png(os.path.join(root, "rgb", f), seq["colors"][i], filt)
+                write_png(os.path.join(root, "depth", f), depth_mm[i], filt)
+                write_png(os.path.join(root, "masks", f),
+                          (seq["masks"][i] > 0).astype(np.uint8) * 255, filt)
+            reader = YcbineoatReader(root)
+            t0 = time.perf_counter()
+            frames = [(reader.get_color(i), reader.get_depth(i),
+                       reader.get_mask(i)) for i in range(n)]
+            res[name] = (time.perf_counter() - t0) / n * 1e3
+            for i, (c, d, m) in enumerate(frames):
+                if not (np.array_equal(c, seq["colors"][i])
+                        and np.array_equal(d, (depth_mm[i] / 1e3).astype(np.float32))
+                        and np.array_equal(m > 0, seq["masks"][i] > 0)):
+                    raise AssertionError(f"reader ({name} rows): frame {i} "
+                                         f"does not read back as written")
+    print(f"reader: YcbineoatReader color + depth + mask of a 480x640 frame "
+          f"(host, {n} frames): Up rows {res['up']:.3f} ms, Paeth rows "
+          f"{res['paeth']:.3f} ms", flush=True)
+    return res
 
 
 def _angle(Ra, Rb):
@@ -813,36 +940,54 @@ def visible_gt_points(seq, model_pts, n_frames):
     return model_pts[dist < 0.005]
 
 
-def run_video(seq, feats, cfg_nerf, n_frames, profile_from=None):
-    """`BundleSdf.run` over @n_frames with the NOF on (built without
-    `device`: the card is the default), then `on_finish`. Returns the
-    tracker, its frames, the wall seconds from a device sync to the end of
-    on_finish, the scatter kernel's launches over the run, and the CUDA
-    streams the kernel was launched on. With @profile_from, a
-    torch.profiler of the card's activity runs from that frame to the end
-    and is returned with its wall seconds as a 6th item."""
-    from bundlesdf_tpu_torch.bundlesdf import BundleSdf
-    from bundlesdf_tpu_torch.config import default_track_config
-    from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
+def count_streams():
+    """Wrap the hash-grid backward's scatter so each call counts the CUDA
+    stream it was issued on; returns (counter, undo)."""
     from bundlesdf_tpu_torch.ops import hashgrid
-    from bundlesdf_tpu_torch.ops.scatter import scatter_rows
-    cfg = default_track_config()
-    cfg.update(stage_timing=True, SPDLOG=0)
     streams, orig = collections.Counter(), hashgrid.scatter_rows
 
     def on_stream(vals, rows, n_rows, group=1):
         streams[torch.cuda.current_stream().cuda_stream] += 1
         return orig(vals, rows, n_rows, group=group)
 
-    with tempfile.TemporaryDirectory() as tmp:
+    hashgrid.scatter_rows = on_stream
+
+    def undo():
+        hashgrid.scatter_rows = orig
+    return streams, undo
+
+
+def run_video(seq, feats, cfg_nerf, n_frames, profile_from=None,
+              out_dir=None):
+    """`BundleSdf.run` over @n_frames with the NOF on (built without
+    `device`: the card is the default), then `on_finish`. Returns the
+    tracker, its frames, the wall seconds from a device sync to the end of
+    on_finish, the scatter kernel's launches over the run, and the CUDA
+    streams the kernel was launched on. With @profile_from, a
+    torch.profiler of the card's activity runs from that frame to the end
+    and is returned with its wall seconds as a 6th item. With @out_dir the
+    run writes its artifacts there (`SPDLOG` 1, with the two config files
+    `run_custom.run_one_video` dumps), for the offline refine."""
+    from bundlesdf_tpu_torch.bundlesdf import BundleSdf
+    from bundlesdf_tpu_torch.config import default_track_config, dump_config
+    from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
+    from bundlesdf_tpu_torch.ops.scatter import scatter_rows
+    cfg = default_track_config()
+    cfg.update(stage_timing=True, SPDLOG=0 if out_dir is None else 1)
+
+    with (tempfile.TemporaryDirectory() if out_dir is None
+          else contextlib.nullcontext(out_dir)) as tmp:
         cfg["debug_dir"] = tmp
         cfg_nerf = dict(cfg_nerf, save_dir=os.path.join(tmp, "nerf"))
+        if out_dir is not None:
+            dump_config(cfg, os.path.join(tmp, "config_bundletrack.yml"))
+            dump_config(cfg_nerf, os.path.join(tmp, "config_nerf.yml"))
         matcher = OrbMatcher(detector=lambda f: feats[f.id_str])
         t = BundleSdf(cfg_track=cfg, cfg_nerf=cfg_nerf,
                       start_nerf_keyframes=5, matcher=matcher)
         if t.device.type != "cuda":
             raise AssertionError(f"BundleSdf's default device is {t.device}")
-        hashgrid.scatter_rows = on_stream
+        streams, undo = count_streams()
         try:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -867,19 +1012,22 @@ def run_video(seq, feats, cfg_nerf, n_frames, profile_from=None):
                 prof.__exit__(None, None, None)
                 return t, frames, dt, launches, streams, (prof, wall)
         finally:
-            hashgrid.scatter_rows = orig
+            undo()
     return t, frames, dt, launches, streams
 
 
 def phase_video(seq, feats, fx, name, cfg_nerf, n_frames=N_TRACK,
-                strict_ref=None):
+                strict_ref=None, out_dir=None):
     """The full online loop (tracker + NOF) on the card, scored by
     `eval/benchmark.py` against the ground truth and gated against the
-    JAX package's tracker-only run of the same frames (the fixture)."""
+    JAX package's tracker-only run of the same frames (the fixture). With
+    @out_dir it leaves its artifacts there (see `run_video`)."""
     from bundlesdf_tpu_torch.eval.benchmark import benchmark_video
     from bundlesdf_tpu_torch.mesh.marching import marching_tetrahedra
     t, frames, dt, launches, streams = run_video(seq, feats, cfg_nerf,
-                                                 n_frames)
+                                                 n_frames, out_dir=out_dir)
+    # the artifact writes (SPDLOG 1), a stage of their own
+    art_s = sum(st.get("artifacts", 0.0) for st in t.stage_stats)
     peak = torch.cuda.max_memory_allocated()
     st = t.pipeline_stats
     steps = st.get("nof_steps_total", 0)
@@ -906,7 +1054,7 @@ def phase_video(seq, feats, fx, name, cfg_nerf, n_frames=N_TRACK,
            "chamfer_cm": scores["chamfer(cm)"],
            "mesh_vertices": 0 if t.mesh is None else len(t.mesh.vertices),
            "mesh_faces": 0 if t.mesh is None else len(t.mesh.faces),
-           "marching": marching_tetrahedra.last_path}
+           "marching": marching_tetrahedra.last_path, "artifacts_s": art_s}
     vs = "" if strict_ref is None else (
         f" (strict sync {strict_ref['frames_per_s']:.4f} frames/s, "
         f"{strict_ref['ms_per_frame']:.3f} ms/frame)")
@@ -917,6 +1065,11 @@ def phase_video(seq, feats, fx, name, cfg_nerf, n_frames=N_TRACK,
           f"scatter_rows launches {launches}; kernel streams "
           f"{ {('nof' if k == nerf_stream else k): v for k, v in streams.items()} }; "
           f"peak {res['peak_gib']:.3f} GiB", flush=True)
+    if out_dir is not None:
+        print(f"run_video {name} artifacts (SPDLOG 1, PNGs + keyframes.yml "
+              f"of every frame): {art_s:.3f} s of stage time; "
+              f"{n_frames / max(dt - art_s, 1e-9):.4f} frames/s without "
+              f"them", flush=True)
     print(f"run_video {name} pipeline_stats "
           f"{json.dumps({k: round(v, 6) for k, v in st.items()})}",
           flush=True)
@@ -1021,6 +1174,150 @@ def phase_mesh_vs_cpu(runner):
     return err
 
 
+# ---------------------------------------------------------------------------
+# the offline refine (phase 10)
+# ---------------------------------------------------------------------------
+ARTIFACTS = ("nerf_with_bundletrack_online/mesh_cleaned.obj",
+             "nerf_with_bundletrack_online/mesh_real_world.obj",
+             "nerf_with_bundletrack_online/optimized_poses.txt",
+             "nerf_with_bundletrack_online/config.yml",
+             "textured_mesh.obj", "textured_mesh.mtl", "textured_mesh.png")
+
+
+def _keyframe_add(seq, mp, ids, cam_in_obs, gt_vis, mesh=None):
+    """ADD/ADD-S/AUC (and the mesh Chamfer) of keyframe poses @cam_in_obs
+    (ids @ids) by eval/benchmark.py, against the ground truth."""
+    from bundlesdf_tpu_torch.eval.benchmark import benchmark_video
+    idx = [seq["id_strs"].index(i) for i in ids]
+    gt = np.linalg.inv(seq["cam_in_obs"][idx])
+    return benchmark_video(None, gt, mp, gt_vis,
+                           pred_poses=np.linalg.inv(cam_in_obs),
+                           pred_mesh=mesh)
+
+
+def phase_refine(seq, fx, out_dir, online, profile=False):
+    """`run_custom.run_one_video_global_nerf` (the `--mode global_refine`
+    entry point) on phase 9's artifacts at the refine config: steps/s,
+    memory, the kernel's launches (= steps) and stream, the artifacts, the
+    refined mesh and poses against the ground truth beside the online
+    run's, the texture; then the kernel at the refine step's rows."""
+    from bundlesdf_tpu_torch import run_custom
+    from bundlesdf_tpu_torch.config import load_yaml
+    from bundlesdf_tpu_torch.mesh.marching import marching_tetrahedra
+    from bundlesdf_tpu_torch.mesh.render import rasterize
+    from bundlesdf_tpu_torch.ops.scatter import scatter_rows
+    from bundlesdf_tpu_torch.utils.png import read_png
+    streams, undo = count_streams()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        scatter_rows.launches = 0
+        t0 = time.perf_counter()
+        t = run_custom.run_one_video_global_nerf(out_folder=out_dir)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = scatter_rows.launches
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated()
+    st, cfg, runner = t.refine_stats, t.nerf.cfg, t.nerf
+    nerf_stream = runner.stream.cuda_stream
+    print(f"refine: {st['keyframes']} keyframes 480x640, {st['steps']} steps "
+          f"(n_step {cfg['n_step']}), {cfg['num_levels']} levels finest "
+          f"{cfg['finest_res']} T=2^{cfg['log2_hashmap_size']} "
+          f"({runner.spec.grid.total_rows} rows), {cfg['N_rand']} rays x "
+          f"({cfg['N_samples']} + {cfg['N_samples_around_depth']}) samples; "
+          f"{st['steps_per_s']:.3f} steps/s ({1e3 / st['steps_per_s']:.3f} "
+          f"ms/step) over {st['timed_steps']} steps after a first chunk of "
+          f"{st['steps'] - st['timed_steps']} in {st['first_chunk_s']:.3f} s; read + scene bounds + ray store "
+          f"{st['read_prep_s']:.3f} s, mesh {st['mesh_s']:.3f} s, texture "
+          f"{st['texture_s']:.3f} s, wall {wall:.3f} s; peak "
+          f"{peak / 2 ** 30:.3f} GiB; scatter_rows launches {launches}; "
+          f"kernel streams "
+          f"{ {('nof' if k == nerf_stream else k): v for k, v in streams.items()} }; "
+          f"marching {marching_tetrahedra.last_path}, rasterizer "
+          f"{rasterize.last_path}", flush=True)
+    missing = [a for a in ARTIFACTS
+               if not os.path.exists(os.path.join(out_dir, a))]
+    if missing:
+        raise AssertionError(f"refine: artifacts missing: {missing}")
+    if launches != st["steps"] or set(streams) != {nerf_stream} or \
+            nerf_stream == torch.cuda.default_stream().cuda_stream:
+        raise AssertionError(f"refine: {launches} scatter_rows launches for "
+                             f"{st['steps']} steps, on streams "
+                             f"{dict(streams)} (the runner's: {nerf_stream})")
+    if (marching_tetrahedra.last_path, rasterize.last_path) != \
+            ("native", "native"):
+        raise AssertionError(f"refine: marching {marching_tetrahedra.last_path}"
+                             f", rasterizer {rasterize.last_path}; the native "
+                             f"library should have run both")
+    poses = np.loadtxt(os.path.join(out_dir, ARTIFACTS[2])).reshape(-1, 4, 4)
+    R = poses[:, :3, :3]
+    orth = float(np.abs(R @ R.transpose(0, 2, 1) - np.eye(3)).max())
+    if not np.isfinite(poses).all() or orth > 1e-3:
+        raise AssertionError(f"refine: optimized poses not finite and "
+                             f"orthonormal (max |R R^T - I| {orth})")
+    # keyframe poses before (online, keyframes.yml) and after the refine
+    stamps = sorted(d for d in os.listdir(out_dir) if os.path.exists(
+        os.path.join(out_dir, d, "keyframes.yml")))
+    reg = load_yaml(os.path.join(out_dir, stamps[-1], "keyframes.yml"))
+    ids = sorted(reg)
+    if len(ids) != len(poses):
+        raise AssertionError(f"refine: {len(poses)} optimized poses for "
+                             f"{len(ids)} keyframes")
+    before = np.array([np.reshape(reg[i]["cam_in_ob"], (4, 4)) for i in ids])
+    mp = fx["model_pts"]
+    gt_vis = visible_gt_points(seq, mp, N_TRACK)
+    s_on = _keyframe_add(seq, mp, ids, before, gt_vis)
+    s_ref = _keyframe_add(seq, mp, ids, poses.astype(np.float64), gt_vis,
+                          mesh=t.mesh)
+    tex = read_png(os.path.join(out_dir, "textured_mesh.png"))
+    filled = float((tex != 128).any(-1).mean())
+    res = {"steps": st["steps"], "steps_per_s": st["steps_per_s"],
+           "peak_gib": peak / 2 ** 30, "launches": launches,
+           "wall_s": wall, "stats": st,
+           "mesh_faces": len(t.mesh.faces), "chamfer_cm": s_ref["chamfer(cm)"],
+           "add_mm": s_ref["ADD(cm)"] * 10, "adds_mm": s_ref["ADDS(cm)"] * 10,
+           "online_kf_add_mm": s_on["ADD(cm)"] * 10, "texture_filled": filled}
+    print(f"refine accuracy: mesh {len(t.mesh.vertices)} vertices "
+          f"{len(t.mesh.faces)} faces, Chamfer {res['chamfer_cm']:.4f} cm "
+          f"(online mesh of phase 9: {online['mesh_faces']} faces, Chamfer "
+          f"{online['chamfer_cm']:.4f} cm); optimized_poses.txt mean ADD "
+          f"{res['add_mm']:.4f} mm ADD-S {res['adds_mm']:.4f} mm (AUC "
+          f"{s_ref['ADD_AUC(%)']:.2f} %) over {len(ids)} keyframes, the same "
+          f"keyframes online {res['online_kf_add_mm']:.4f} mm; texture "
+          f"{tex.shape[1]}x{tex.shape[0]}, {filled:.1%} of texels filled",
+          flush=True)
+    if not res["chamfer_cm"] < CHAMFER_MAX_CM:
+        raise AssertionError(f"refine: Chamfer {res['chamfer_cm']} cm (gate "
+                             f"{CHAMFER_MAX_CM} cm)")
+    if profile:
+        phase_refine_profile(runner)
+    res["kernel"] = phase_scatter_real(runner, name="refine step")
+    return res
+
+
+def phase_refine_profile(runner, n_steps=20):
+    """Device-busy share of @n_steps more refine steps of @runner."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner.train(n_steps=n_steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    dev_us = sum(e.self_device_time_total for e in ka
+                 if e.device_type == DeviceType.CUDA)
+    print(f"profile of {n_steps} refine steps, "
+          f"{torch.cuda.get_device_name(0)}: wall {wall * 1e3:.3f} ms "
+          f"({wall * 1e3 / n_steps:.3f} ms/step), device-busy "
+          f"{dev_us / 1e3:.3f} ms ({dev_us / 1e4 / wall:.1f} % of wall)\n"
+          f"{ka.table(sort_by='self_cuda_time_total', row_limit=15)}",
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this smoke run "
@@ -1041,6 +1338,7 @@ def main():
     del runner
     torch.cuda.empty_cache()
     seq, feats, fx = tracker_inputs()
+    phase_reader(seq)
     phase_tracker_components(seq, feats)
     phase_tracker_main(seq, feats, fx)
     if "--profile" in sys.argv[1:]:
@@ -1052,11 +1350,19 @@ def main():
     mesh_err = phase_mesh_vs_cpu(t.nerf)
     del t
     torch.cuda.empty_cache()
-    t, threaded = phase_video(
-        seq, feats, fx, "threaded",
-        online_nerf_config(cfg_t, sync_max_delay=4, async_host=True),
-        strict_ref=strict)
-    del t
+    art_dir = tempfile.mkdtemp(prefix="bsdf_refine_")
+    try:
+        t, threaded = phase_video(
+            seq, feats, fx, "threaded",
+            online_nerf_config(cfg_t, sync_max_delay=4, async_host=True),
+            strict_ref=strict, out_dir=art_dir)
+        del t
+        torch.cuda.empty_cache()
+        refine = phase_refine(seq, fx, art_dir, threaded,
+                              profile="--profile" in sys.argv[1:])
+    finally:
+        shutil.rmtree(art_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
     if "--profile" in sys.argv[1:]:
         phase_video_profile(seq, feats)
     if "jax" in sys.modules:
@@ -1068,7 +1374,8 @@ def main():
         "replaces": "bundlesdf_tpu/ops/scatter.py:221",
         "launches": launches,
         "max_abs_err": max([r["max_abs_err"] for r in scatter.values()]
-                           + [real["max_abs_err"], grad_err]),
+                           + [real["max_abs_err"], grad_err,
+                              refine["kernel"]["max_abs_err"]]),
         "ms": real["real_step_ms"], "plain_ms": real["plain_ms"],
         "bound_ms": real["bound_ms"], "bound_by": real["bound_by"],
         "library_ms": real["library_ms"],
@@ -1083,7 +1390,15 @@ def main():
         "extract_mesh_sdf_err": mesh_err,
         "uniform": {k: {m: v[m] for m in ("ms", "library_ms", "plain_ms",
                                           "bound_ms")}
-                    for k, v in scatter.items()}}]}),
+                    for k, v in scatter.items()},
+        # the rows of one step at the refine config (phase 10)
+        "refine": {
+            "launches": refine["launches"], "steps": refine["steps"],
+            **{k: refine["kernel"][k] for k in (
+                "max_abs_err", "real_step_ms", "group1_ms", "library_ms",
+                "plain_ms", "zero_fill_ms", "bound_ms", "bound_by",
+                "bound_share", "m_rows", "n_rows", "group", "atomics",
+                "check_by_level")}}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

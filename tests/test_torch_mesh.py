@@ -1,9 +1,12 @@
 """Port parity for `mesh/`, `native.py` and the mesh half of `eval/`:
 marching tetrahedra on an analytic sphere SDF gives the JAX package's
-vertices and faces, exactly, on the native and the numpy path; the `Mesh`
+vertices and faces, exactly on the numpy path and order-free on the native
+path; the `Mesh`
 methods the online loop and the benchmark use (merge, biggest component,
 split, seeded surface samples, obj round trip) and the Chamfer / ICP /
 `benchmark_video` scoring equal the JAX package's."""
+import os
+
 import numpy as np
 import pytest
 
@@ -26,21 +29,74 @@ def _sphere(n=28, r=0.6, center=(0.0, 0.0, 0.0)):
     return np.sqrt((X - c[0]) ** 2 + (Y - c[1]) ** 2 + (Z - c[2]) ** 2) - r
 
 
+def _pin_numpy(monkeypatch, *mods):
+    """The marching (and rasterizer) paths of @mods take numpy for this
+    test, whichever path their process loaded."""
+    for mod in mods:
+        monkeypatch.setattr(mod, "_lib", None)
+        monkeypatch.setattr(mod, "_tried", True)
+
+
+# order-free comparison: vertices match one to one within 1e-6 (index
+# units; the native path interpolates in float64 from float32 field
+# values, as the numpy path does from float64), and triangles are equal
+# as cyclic triples of matched vertices (winding included)
+MATCH_TOL = 1e-6
+
+
+def assert_same_surface(va, fa, vb, fb, tol=MATCH_TOL):
+    from scipy.spatial import cKDTree
+    assert va.shape == vb.shape and fa.shape == fb.shape
+    dist, idx = cKDTree(vb).query(va, k=1)
+    assert dist.max() <= tol, dist.max()
+    assert len(np.unique(idx)) == len(va), "vertex matching is not 1:1"
+
+    def canon(f):
+        r = np.argmin(f, axis=1)
+        rolled = np.stack([f[np.arange(len(f)), (r + k) % 3]
+                           for k in range(3)], axis=1)
+        return rolled[np.lexsort(rolled.T[::-1])]
+
+    np.testing.assert_array_equal(canon(idx[fa]), canon(fb))
+
+
 @pytest.mark.parametrize("path", ["native", "numpy"])
 def test_marching_equals_jax(path, monkeypatch):
-    if path == "numpy":
-        for mod in (jnat, tnat):
-            monkeypatch.setattr(mod, "_lib", None)
-            monkeypatch.setattr(mod, "_tried", True)
-    else:
-        assert tnat.available(), "the native library did not build"
+    """numpy: both packages on their numpy paths, exactly equal. native:
+    the port's native path, order-free against the port's numpy path and
+    the JAX package's numpy path (the two paths emit the same surface in
+    another vertex and face order)."""
     sdf = _sphere()
+    if path == "numpy":
+        _pin_numpy(monkeypatch, jnat, tnat)
+        vj, fj = j_march(sdf, 0.0)
+        vt, ft = marching_tetrahedra(sdf, 0.0)
+        assert marching_tetrahedra.last_path == "numpy"
+        assert len(ft) > 1000
+        np.testing.assert_array_equal(vt, vj)
+        np.testing.assert_array_equal(ft, fj)
+        return
+    assert tnat.available(), "the native library did not build"
+    vn, fn = marching_tetrahedra(sdf, 0.0)
+    assert marching_tetrahedra.last_path == "native"
+    assert len(fn) > 1000
+    _pin_numpy(monkeypatch, jnat, tnat)
+    vp, fp = marching_tetrahedra(sdf, 0.0)
+    assert marching_tetrahedra.last_path == "numpy"
     vj, fj = j_march(sdf, 0.0)
-    vt, ft = marching_tetrahedra(sdf, 0.0)
-    assert marching_tetrahedra.last_path == path
-    assert len(ft) > 1000
-    np.testing.assert_array_equal(vt, vj)
-    np.testing.assert_array_equal(ft, fj)
+    assert_same_surface(vn, fn, vp, fp)
+    assert_same_surface(vn, fn, vj, fj)
+
+
+def test_native_library_is_private():
+    """The port loads its own build, renamed into its build directory
+    whole, never the JAX package's `native/build/` file."""
+    assert tnat.available()
+    path = tnat.library_path()
+    assert os.path.dirname(path) == tnat.BUILD_DIR
+    assert os.path.exists(path)
+    assert os.path.realpath(tnat._lib._name) == os.path.realpath(path)
+    assert "native/build" not in path
 
 
 def _two_spheres():

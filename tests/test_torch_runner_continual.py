@@ -4,8 +4,8 @@
 - `add_new_frames` leaves the ray store and the occupancy grid equal to
   JAX's (exact: both are the same numpy on the same inputs);
 - with the port's trained params carried to JAX, `extract_mesh` gives the
-  SDF grid within 1e-5 (float32 MLP sums in another order) and the same
-  faces; pose export with a nonzero `pose_array` within 1e-6 (float32
+  SDF grid within 1e-5 (float32 MLP sums in another order) and, both
+  packages marching on the native path, the same faces; pose export with a nonzero `pose_array` within 1e-6 (float32
   pose params, float64 host math in both); `mesh_to_real_world` equal;
 - a JAX `save_weights` file (params and Adam state) loads in the port;
   the port's own checkpoint round-trips, and training resumes identically;
@@ -22,9 +22,12 @@ import torch
 
 from synthetic import cube_orbit_sequence
 
+from bundlesdf_tpu import native as jnative
 from bundlesdf_tpu.nof import models as jm
 from bundlesdf_tpu.nof import runner as jrunner
+from bundlesdf_tpu_torch import native as tnative
 from bundlesdf_tpu_torch.config import default_nerf_config
+from bundlesdf_tpu_torch.mesh.marching import marching_tetrahedra as tmarch
 from bundlesdf_tpu_torch.nof import runner as trunner
 from bundlesdf_tpu_torch.nof.models import params_from_jax, params_to_jax
 from bundlesdf_tpu_torch.nof.runner import NofRunner, preprocess_frame_data
@@ -130,6 +133,15 @@ def trained(orbit):
 
 
 def _grids(monkeypatch, runner, module):
+    # both packages march on the native path, through the port's build of
+    # `native/`, whichever path their process loaded: the numpy path's
+    # vertex merge orders vertices by rounded position, which SDF grids
+    # 1e-5 apart can reorder; the native path numbers them by grid edge
+    lib = tnative._load()
+    assert lib is not None, "the native library did not build"
+    for nat in (jnative, tnative):
+        monkeypatch.setattr(nat, "_lib", lib)
+        monkeypatch.setattr(nat, "_tried", True)
     seen = []
     orig = module.marching_tetrahedra
 
@@ -145,6 +157,7 @@ def _grids(monkeypatch, runner, module):
 def test_extract_mesh_matches_jax(trained, monkeypatch):
     port, ref = trained
     mt, gt = _grids(monkeypatch, port, trunner)
+    assert tmarch.last_path == "native"
     mj, gj = _grids(monkeypatch, ref, jrunner)
     assert gt.shape == gj.shape and gt.shape[0] > 20
     np.testing.assert_allclose(gt, gj, rtol=0, atol=1e-5)
