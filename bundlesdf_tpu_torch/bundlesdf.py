@@ -72,7 +72,7 @@ class BundleSdf:
         if use_gui:
             raise NotImplementedError("the GUI is not ported to "
                                       "bundlesdf_tpu_torch (ROADMAP.md queue "
-                                      "1, item 12)")
+                                      "1, item 7)")
         self.device = resolve_device(device)
         self.start_nerf_keyframes = start_nerf_keyframes
         self.debug_dir = self.cfg_track["debug_dir"]
@@ -85,7 +85,7 @@ class BundleSdf:
             if ckpt and os.path.exists(ckpt):
                 raise NotImplementedError(
                     "loftr_ckpt is set: the LoFTR matcher is not ported to "
-                    "bundlesdf_tpu_torch (ROADMAP.md queue 1, item 10)")
+                    "bundlesdf_tpu_torch (ROADMAP.md queue 1, item 5)")
             self.matcher = OrbMatcher(device=self.device)
         self.bundler = Bundler(self.cfg_track, self.matcher,
                                device=self.device)
@@ -213,7 +213,7 @@ class BundleSdf:
             raise NotImplementedError(
                 "matchers without match_frames (the LoFTR predict path with "
                 "its pair canonicalization) are not ported to "
-                "bundlesdf_tpu_torch (ROADMAP.md queue 1, item 10)")
+                "bundlesdf_tpu_torch (ROADMAP.md queue 1, item 5)")
         raw = self.matcher.match_frames(frame_pairs)
 
         if use_map_points:

@@ -17,7 +17,9 @@ that PyYAML's `safe_load` also reads back to the same values, bit for bit:
 every float is written with a `.` in its mantissa (PyYAML reads `1e-05` as
 a string), and NaN or infinities, which have no such form, are refused.
 `load_yaml` reads such a file with `json`; PyYAML is imported only for a
-file that is not JSON (the GPU machine has no PyYAML).
+file that is not JSON (the GPU machine has no PyYAML). `parse_yaml_value`
+reads one value of a command-line override as `yaml.safe_load` would, or
+refuses a form it does not read.
 """
 from __future__ import annotations
 
@@ -423,3 +425,67 @@ def load_yaml(path: str):
         import yaml
 
         return yaml.safe_load(text)
+
+
+def apply_dotted(cfg: dict, overrides) -> dict:
+    """Set @overrides ({"dotted.key": value}) into the nested dict @cfg in
+    place; returns @cfg."""
+    for key, val in (overrides or {}).items():
+        node = cfg
+        parts = key.split(".")
+        for p in parts[:-1]:
+            node = node[p]
+        node[parts[-1]] = val
+    return cfg
+
+
+# the forms of one value whose meaning in `yaml.safe_load` (YAML 1.1) is
+# plain; yaml/resolver.py has the rest
+_YAML_NULL = ("", "~", "null", "Null", "NULL")
+_YAML_BOOL = {w: v for v, words in ((True, "yes true on"),
+                                    (False, "no false off"))
+              for w0 in words.split() for w in (w0, w0.title(), w0.upper())}
+_YAML_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9]*)$")
+_YAML_FLOAT = re.compile(r"^(?:[-+]?[0-9]+\.[0-9]*|\.[0-9]+)"
+                         r"(?:[eE][-+][0-9]+)?$")
+
+
+def _yaml_scalar(s: str):
+    if s in _YAML_NULL:
+        return None
+    if s in _YAML_BOOL:
+        return _YAML_BOOL[s]
+    if _YAML_INT.match(s):
+        return int(s)
+    if _YAML_FLOAT.match(s):
+        return float(s)
+    # numbers in other notations (octal, hex, `_`, sexagesimal, `.inf`,
+    # `1e-3`, which YAML 1.1 reads as a string), timestamps and YAML syntax
+    if (s[0] in "-+.0123456789[]{},#&*!|>'\"%@`?:=" or ": " in s
+            or " #" in s or s.endswith(":")):
+        raise ValueError(f"unsupported YAML value: {s!r}")
+    return s
+
+
+def parse_yaml_value(text: str):
+    """One value of a command-line override, as `yaml.safe_load` reads it,
+    without PyYAML: null, bools, decimal ints and floats, plain and quoted
+    strings, and flat flow sequences of scalars. Any other form raises
+    ValueError."""
+    s = text.strip()
+    if s[:1] == "[" and s[-1:] == "]":
+        body = s[1:-1]
+        if any(c in body for c in "[]{}'\""):
+            raise ValueError(f"unsupported flow sequence: {text!r}")
+        items = [x.strip() for x in body.split(",")]
+        if items and not items[-1]:
+            items.pop()        # a trailing comma, as in `[1, 2,]`
+        if any(not x for x in items):
+            raise ValueError(f"empty item in flow sequence: {text!r}")
+        return [_yaml_scalar(x) for x in items]
+    if s[:1] == "'" and s[-1:] == "'" and len(s) > 1 \
+            and "'" not in s[1:-1].replace("''", ""):
+        return s[1:-1].replace("''", "'")
+    if s[:1] == '"':
+        return json.loads(s)   # raises ValueError where it is not JSON
+    return _yaml_scalar(s)

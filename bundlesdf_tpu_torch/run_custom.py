@@ -26,7 +26,7 @@ import numpy as np
 from scipy import ndimage
 
 from bundlesdf_tpu_torch.bundlesdf import BundleSdf
-from bundlesdf_tpu_torch.config import (default_nerf_config,
+from bundlesdf_tpu_torch.config import (apply_dotted, default_nerf_config,
                                         default_track_config, dump_config,
                                         load_config, load_yaml)
 from bundlesdf_tpu_torch.datasets import YcbineoatReader
@@ -107,16 +107,11 @@ def run_one_video(video_dir, out_folder, use_segmenter=False, use_gui=False,
     if use_segmenter:
         raise NotImplementedError("--use_segmenter: utils/segmentation.py is "
                                   "not ported to bundlesdf_tpu_torch "
-                                  "(ROADMAP.md queue 1, item 12)")
+                                  "(ROADMAP.md queue 1, item 2)")
     set_seed(0)
     os.makedirs(out_folder, exist_ok=True)
     cfg_track, cfg_nerf = make_configs(out_folder, debug_level)
-    for key, val in (track_overrides or {}).items():
-        node = cfg_track
-        parts = key.split(".")
-        for p in parts[:-1]:
-            node = node[p]
-        node[parts[-1]] = val
+    apply_dotted(cfg_track, track_overrides)
     # dump the PRE-override config: run_one_video_global_nerf reloads
     # config_nerf.yml as the refine base, so online-only knobs (e.g.
     # n_step) do not leak into the offline refine settings

@@ -55,7 +55,19 @@ Phases, one printed line each (or a few), any failure exits non-zero:
      online run's, the texture's filled share; then the kernel against
      its plain version on the rows of one refine step (83,886,080
      entries into 39,601,891 rows), timed as in phase 3;
- 11. a JSON line of per-kernel results, then the final status line.
+ 11. the bench (`bundlesdf_tpu_torch/bench.py`, the port of `bench.py`):
+     its NOF line at full length, its tracking and pipeline lines on the
+     first 30 of their 70 frames with a warm-up of 15 (ORB features from
+     tests/fixtures/tracker_orb_bench70.npz); each record printed, device
+     times from profiler unions, the kernel's launches in the NOF and
+     pipeline lines (= that line's NOF steps, on the runner's stream),
+     the pipeline's frame rate at most its device floor;
+ 12. the protocol driver (`bundlesdf_tpu_torch/benchmark_synthetic.py`)
+     on the whole 120-frame easy orbit, `--no_nerf --skip_refine`, ORB
+     features replayed from tests/fixtures/tracker_orb_easy120.npz: its
+     `metrics.json` against the JAX driver's run stored in that file (no
+     new FAIL frame, mean ADD at most max(2 x JAX, JAX + 1 mm));
+ 13. a JSON line of per-kernel results, then the final status line.
 --profile adds torch.profiler tables of 5 NOF steps, of 5 tracked frames,
 of 20 refine steps and of the online loop's first NOF batch. Needs a CUDA
 card, nvcc and g++ (the native library); refuses to run on the CPU.
@@ -1318,6 +1330,139 @@ def phase_refine_profile(runner, n_steps=20):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the bench and the protocol driver (phases 11-12)
+# ---------------------------------------------------------------------------
+BENCH_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                             "tracker_orb_bench70.npz")
+EASY_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                            "tracker_orb_easy120.npz")
+BENCH_FRAMES, BENCH_WARMUP = 30, 15
+
+
+def _counted(fn):
+    """fn() with the scatter kernel's launches counted and the CUDA
+    streams they were issued on; returns (result, launches, streams)."""
+    from bundlesdf_tpu_torch.ops.scatter import scatter_rows
+    streams, undo = count_streams()
+    try:
+        scatter_rows.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, scatter_rows.launches, streams
+    finally:
+        undo()
+
+
+def _check_launches(line, launches, streams, steps, stream):
+    if not (steps > 0 and launches == steps):
+        raise AssertionError(f"bench {line}: {launches} scatter_rows launches "
+                             f"for {steps} NOF steps")
+    if set(streams) != {stream.cuda_stream} or \
+            stream.cuda_stream == torch.cuda.default_stream().cuda_stream:
+        raise AssertionError(f"bench {line}: scatter kernel launched on "
+                             f"streams {dict(streams)}, the runner's is "
+                             f"{stream.cuda_stream}")
+
+
+def phase_bench():
+    """The bench's three lines through its own functions: the NOF line as
+    `python -m bundlesdf_tpu_torch.bench` runs it, the tracking and
+    pipeline lines on the first 30 frames (warm-up 15)."""
+    from bundlesdf_tpu_torch import bench
+    t0 = time.perf_counter()
+    (nof, runner), nof_launches, nof_streams = _counted(
+        lambda: bench.bench_nof("cuda"))
+    print(json.dumps(nof), flush=True)
+    _check_launches("nof_train_steps_per_sec", nof_launches, nof_streams,
+                    runner.global_step, runner.stream)
+    nof_steps = runner.global_step
+    del runner
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    seq = bench.tracking_sequence()
+    t2 = time.perf_counter()
+    trk, _ = bench.bench_tracking("cuda", BENCH_FIXTURE,
+                                  n_frames=BENCH_FRAMES, warmup=BENCH_WARMUP,
+                                  seq=seq)
+    print(json.dumps(trk), flush=True)
+    t3 = time.perf_counter()
+    (pipe, t), pipe_launches, pipe_streams = _counted(
+        lambda: bench.bench_pipeline(
+            "cuda", BENCH_FIXTURE, n_frames=BENCH_FRAMES,
+            warmup=BENCH_WARMUP,
+            device_ms_per_step=nof["device_ms_per_step"],
+            device_ms_per_frame=trk["device_ms_per_frame"], seq=seq))
+    print(json.dumps(pipe), flush=True)
+    _check_launches("pipeline_fps", pipe_launches, pipe_streams,
+                    pipe["nof_steps_trained"], t.nerf.stream)
+    del t
+    torch.cuda.empty_cache()
+    for rec, keys in ((nof, ("device_ms_per_step", "util")),
+                      (trk, ("device_ms_per_frame", "device_fps",
+                             "device_ms_by_program", "util")),
+                      (pipe, ("device_floor_fps_single_chip",
+                              "overlap_efficiency"))):
+        missing = [k for k in keys if k not in rec]
+        if missing or not np.isfinite(rec["value"]) or rec["value"] <= 0:
+            raise AssertionError(f"bench {rec['metric']}: value "
+                                 f"{rec['value']}, missing {missing}")
+    # the floor bounds the frame rate over the same frames and steps
+    if pipe["overlap_efficiency"] > 1:
+        raise AssertionError(f"bench pipeline_fps: {pipe['value']} frames/s "
+                             f"beats its device floor "
+                             f"{pipe['device_floor_fps_single_chip']} "
+                             f"({pipe['floor_window']})")
+    secs = time.perf_counter() - t0
+    print(f"bench phase: {secs:.1f} s (NOF line {t1 - t0:.1f} s, 70 frames "
+          f"rendered {t2 - t1:.1f} s, tracking line {t3 - t2:.1f} s, "
+          f"pipeline line {time.perf_counter() - t3:.1f} s); scatter_rows "
+          f"launches: NOF line "
+          f"{nof_launches} for {nof_steps} steps, pipeline line "
+          f"{pipe_launches} for {pipe['nof_steps_trained']} steps, all on "
+          f"the runners' streams", flush=True)
+    return {"nof": nof, "tracking": trk, "pipeline": pipe,
+            "nof_launches": nof_launches, "nof_steps": nof_steps,
+            "pipeline_launches": pipe_launches, "seconds": secs}
+
+
+def phase_protocol():
+    """`python -m bundlesdf_tpu_torch.benchmark_synthetic --protocol easy
+    --n_frames 120 --no_nerf --skip_refine --orb_features ...` (through
+    its `main`), gated against the JAX driver's run in the fixture."""
+    from bundlesdf_tpu_torch import benchmark_synthetic as driver
+    fx = np.load(EASY_FIXTURE)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="bsdf_protocol_") as out:
+        m = driver.main(["--out", out, "--protocol", "easy", "--n_frames",
+                         "120", "--no_nerf", "--skip_refine",
+                         "--orb_features", EASY_FIXTURE])
+        ids = [f"{i:04d}" for i in range(120)]
+        status = driver.collect_frame_statuses(os.path.join(out, "run"), ids)
+    secs = time.perf_counter() - t0
+    jax_add_cm = float(fx["jax_add"].mean()) * 100
+    jax_fail = fx["jax_status"] == 0
+    fail = np.array([s == "FAIL" for s in status])
+    print(f"protocol easy, 120 frames 480x640, tracker only: {secs:.1f} s "
+          f"(wall_s {m['wall_s']}), FAIL {int(fail.sum())} (JAX "
+          f"{int(jax_fail.sum())}), ADD {m['ADD(cm)']:.4f} cm ADD-S "
+          f"{m['ADDS(cm)']:.4f} cm AUC {m['ADD_AUC(%)']:.2f} / "
+          f"{m['ADDS_AUC(%)']:.2f} %; JAX driver ADD {jax_add_cm:.4f} cm "
+          f"ADD-S {float(fx['jax_adds'].mean()) * 100:.4f} cm, keyframes "
+          f"{len(fx['jax_keyframes'])}", flush=True)
+    if "MISSING" in status:
+        raise AssertionError("protocol easy: a frame wrote no frame.txt")
+    new_fail = np.nonzero(fail & ~jax_fail)[0]
+    if len(new_fail):
+        raise AssertionError(f"protocol easy: frames {new_fail.tolist()} "
+                             f"FAIL that did not FAIL in the JAX run")
+    if not m["ADD(cm)"] <= max(2 * jax_add_cm, jax_add_cm + 0.1):
+        raise AssertionError(f"protocol easy: mean ADD {m['ADD(cm)']} cm "
+                             f"above max(2 x JAX, JAX + 1 mm), JAX "
+                             f"{jax_add_cm} cm")
+    return {**m, "seconds": secs}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this smoke run "
@@ -1365,6 +1510,10 @@ def main():
     torch.cuda.empty_cache()
     if "--profile" in sys.argv[1:]:
         phase_video_profile(seq, feats)
+    bench = phase_bench()
+    protocol = phase_protocol()
+    print(f"phases 11-12: {bench['seconds'] + protocol['seconds']:.1f} s",
+          flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     # ms, plain_ms, library_ms and the bound: the rows of a real step
@@ -1387,6 +1536,11 @@ def main():
         "full_path_launches": strict["launches"],
         "full_path_nof_steps": strict["nof_steps_total"],
         "threaded_path_launches": threaded["launches"],
+        # the bench's lines (phase 11): launches = that line's NOF steps
+        "bench_nof_line_launches": bench["nof_launches"],
+        "bench_nof_line_steps": bench["nof_steps"],
+        "bench_pipeline_line_launches": bench["pipeline_launches"],
+        "bench_pipeline_line_steps": bench["pipeline"]["nof_steps_trained"],
         "extract_mesh_sdf_err": mesh_err,
         "uniform": {k: {m: v[m] for m in ("ms", "library_ms", "plain_ms",
                                           "bound_ms")}

@@ -1,9 +1,26 @@
-"""Regenerate `tests/fixtures/tracker_orb_30f.npz`: the ORB features and the
-JAX package's tracked trajectory for the first 30 frames of the 120-frame
-easy orbit at 480x640 (`tests/synthetic.py::cube_orbit_sequence`, depth
-noise 2 mm, seed 0).
+"""Regenerate the ORB feature fixtures that the GPU runs replay (the card
+has no cv2), one file per `--sequence`:
 
-    JAX_PLATFORMS=cpu python tests/fixtures/gen_tracker_orb.py [--frames 30]
+- `orbit30` (default), `tracker_orb_30f.npz`: the ORB features and the JAX
+  package's tracked trajectory for the first 30 frames of the 120-frame
+  easy orbit at 480x640 (`tests/synthetic.py::cube_orbit_sequence`, depth
+  noise 2 mm, seed 0);
+- `bench70`, `tracker_orb_bench70.npz`: the features of the 70 frames of
+  `bench.py`'s tracking and pipeline lines (`cube_orbit_sequence(n_frames=
+  70, obj_size=0.10, full_angle=1.2)`, no noise), detected on the masks the
+  tracker gets; features only;
+- `easy120`, `tracker_orb_easy120.npz`: the whole 120-frame easy orbit of
+  `benchmark_synthetic.py --protocol easy` (obj_size 0.08, noise 2 mm, seed
+  0), written as a dataset folder by the JAX driver's `write_sequence`; the
+  features are detected on what `run_custom.run_one_video` gives the
+  tracker (the frames read back, the masks eroded by `erode_mask` 3), and
+  the trajectory is the JAX `run_one_video` with the NOF off and no refine
+  (`benchmark_synthetic.py --no_nerf --skip_refine`).
+
+    JAX_PLATFORMS=cpu python tests/fixtures/gen_tracker_orb.py \
+        [--sequence orbit30|bench70|easy120] [--frames 30]
+
+(~2 min and ~1 GB for orbit30, ~1 min for bench70, ~10 min for easy120.)
 
 Features come from the port's own host detection
 (`bundlesdf_tpu_torch.matcher.classical.OrbMatcher.detect_features`: cv2
@@ -15,10 +32,11 @@ track config) on the CPU. `chip_smoke.py` replays the features through
 trajectory against the stored one.
 
 Stored arrays: `counts` (F,) features per frame; `uv` (sum,2) float32 and
-`des` (sum,32) uint8, frame after frame; `jax_cam_in_ob` (F,4,4),
-`jax_status` (F,) FrameStatus values, `jax_keyframes` frame ids;
-`model_pts` (20000,3) GT surface samples; `jax_add`/`jax_adds` (F,)
-per-frame ADD/ADD-S in meters after first-frame alignment.
+`des` (sum,32) uint8, frame after frame; except for bench70,
+`jax_cam_in_ob` (F,4,4), `jax_status` (F,) FrameStatus values,
+`jax_keyframes` frame ids; `model_pts` (20000,3) GT surface samples;
+`jax_add`/`jax_adds` (F,) per-frame ADD/ADD-S in meters after first-frame
+alignment.
 """
 from __future__ import annotations
 
@@ -37,7 +55,8 @@ ROOT = os.path.dirname(os.path.dirname(HERE))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.dirname(HERE))
 
-OUT = os.path.join(HERE, "tracker_orb_30f.npz")
+OUTS = {"orbit30": "tracker_orb_30f.npz", "bench70": "tracker_orb_bench70.npz",
+        "easy120": "tracker_orb_easy120.npz"}
 
 
 def orbit_frames(n_frames=30):
@@ -49,14 +68,59 @@ def orbit_frames(n_frames=30):
                                noise=0.002, seed=0)
 
 
-def detect_all(seq):
+def bench_frames(n_frames=70):
+    """The first @n_frames of the 70 frames of bench.py's tracking and
+    pipeline lines."""
+    from synthetic import cube_orbit_sequence
+    return cube_orbit_sequence(n_frames=n_frames, H=480, W=640, radius=0.45,
+                               obj_size=0.10, full_angle=1.2 * n_frames / 70)
+
+
+def tracker_inputs(sequence, n_frames, tmp):
+    """The first @n_frames of @sequence and the (colors, masks) its
+    fixture's features are detected on; easy120's frames go through a
+    dataset folder under @tmp."""
+    if sequence == "bench70":
+        seq = bench_frames(n_frames)
+    else:
+        seq = orbit_frames(n_frames)
+    if sequence != "easy120":
+        return seq, seq["colors"], seq["masks"]
+    from bundlesdf_tpu_torch.benchmark_synthetic import write_dataset
+    write_dataset(tmp, seq)
+    return (seq,) + driver_inputs(tmp)
+
+
+def detect_all(colors, masks):
+    """The port's detection on each (color, mask) as the tracker's Frame
+    holds them (`fg_mask` = mask > 0)."""
     from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
     orb = OrbMatcher(device="cpu")
     feats = []
-    for c, m in zip(seq["colors"], seq["masks"]):
+    for c, m in zip(colors, masks):
         fr = SimpleNamespace(color=c, fg_mask=(m > 0).astype(np.uint8))
         feats.append(orb.detect_features(fr))
     return feats
+
+
+def jax_detect_all(colors, masks):
+    """The JAX matcher's detection (its per-frame cache) on the same."""
+    from bundlesdf_tpu.matcher import OrbMatcher
+    orb = OrbMatcher()
+    return [orb._frame_feats(SimpleNamespace(
+        id=i, color=c, fg_mask=(m > 0).astype(np.uint8)))[0]
+        for i, (c, m) in enumerate(zip(colors, masks))]
+
+
+def driver_inputs(video_dir, erode=3):
+    """(colors, masks) as the port's `run_one_video` hands them to the
+    tracker: read back through `YcbineoatReader`, masks eroded."""
+    from bundlesdf_tpu_torch.datasets import YcbineoatReader
+    from bundlesdf_tpu_torch.run_custom import erode_mask
+    reader = YcbineoatReader(video_dir=video_dir, shorter_side=480)
+    n = len(reader.color_files)
+    return ([reader.get_color(i) for i in range(n)],
+            [erode_mask(reader.get_mask(i), erode) for i in range(n)])
 
 
 def pose_errors(cam_in_ob, gt_cam_in_ob, model_pts):
@@ -101,34 +165,88 @@ def run_jax(seq):
             np.array([kf.id for kf in t.bundler.keyframes], np.int32), uv_jax)
 
 
+def run_jax_driver(video_dir, out_folder):
+    """The JAX `benchmark_synthetic.py --no_nerf --skip_refine` run:
+    `run_custom.run_one_video` on the dataset folder with a JAX ORB
+    matcher whose cache keeps every frame's detection."""
+    from bundlesdf_tpu.matcher import OrbMatcher
+    from run_custom import run_one_video
+    from benchmark_synthetic import collect_frame_statuses
+    matcher = OrbMatcher()
+    t0 = time.perf_counter()
+    run_one_video(video_dir, out_folder, stride=1, debug_level=1,
+                  refine_overrides={"n_step": 2000}, skip_refine=True,
+                  start_nerf_keyframes=10 ** 9, matcher=matcher)
+    print(f"jax driver: {time.perf_counter() - t0:.1f} s", flush=True)
+    ids = sorted(os.path.basename(f)[:-4] for f in os.listdir(
+        os.path.join(video_dir, "rgb")))
+    ob_in_cam = np.array([np.loadtxt(os.path.join(
+        out_folder, "ob_in_cam", f"{i}.txt")) for i in ids])
+    from bundlesdf_tpu.tracker.frame import FrameStatus
+    status = np.array([FrameStatus[s].value for s in
+                       collect_frame_statuses(out_folder, ids)], np.int32)
+    stamps = sorted(d for d in os.listdir(out_folder) if os.path.exists(
+        os.path.join(out_folder, d, "keyframes.yml")))
+    import yaml
+    with open(os.path.join(out_folder, stamps[-1], "keyframes.yml")) as f:
+        kf_ids = sorted(yaml.safe_load(f))
+    kfs = np.array([ids.index(k) for k in kf_ids], np.int32)
+    uv_jax = [matcher._cache[i][0] for i in range(len(ids))]
+    return np.linalg.inv(ob_in_cam), status, kfs, uv_jax
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--frames", type=int, default=30)
-    ap.add_argument("--out", default=OUT)
+    ap.add_argument("--sequence", default="orbit30", choices=sorted(OUTS))
+    ap.add_argument("--frames", type=int, default=30,
+                    help="frames of the orbit30 sequence")
+    ap.add_argument("--out", default="")
     args = ap.parse_args()
+    out = args.out or os.path.join(HERE, OUTS[args.sequence])
     import jax
     jax.config.update("jax_platforms", "cpu")
-    from benchmark_synthetic import gt_surface_points
+    from benchmark_synthetic import gt_surface_points, write_sequence
 
-    seq = orbit_frames(args.frames)
-    feats = detect_all(seq)
-    poses, status, kfs, uv_jax = run_jax(seq)
+    tmp = tempfile.mkdtemp()
+    try:
+        if args.sequence == "bench70":
+            seq = bench_frames()
+            colors, masks = seq["colors"], seq["masks"]
+            uv_jax = jax_detect_all(colors, masks)
+        elif args.sequence == "easy120":
+            video_dir = os.path.join(tmp, "video")
+            seq = write_sequence(video_dir, 120, 480, 640, 0.002,
+                                 protocol="easy")
+            colors, masks = driver_inputs(video_dir)
+            poses, status, kfs, uv_jax = run_jax_driver(
+                video_dir, os.path.join(tmp, "run"))
+        else:
+            seq = orbit_frames(args.frames)
+            colors, masks = seq["colors"], seq["masks"]
+            poses, status, kfs, uv_jax = run_jax(seq)
+        feats = detect_all(colors, masks)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     for i, ((uv, _), uj) in enumerate(zip(feats, uv_jax)):
         assert np.array_equal(uv, np.asarray(uj, np.float32)), \
             f"frame {i}: port and JAX detection differ"
-    model_pts = gt_surface_points(20000).astype(np.float32)
-    add, adds = pose_errors(poses, seq["cam_in_obs"], model_pts)
-    np.savez_compressed(
-        args.out,
+    arrays = dict(
         counts=np.array([len(u) for u, _ in feats], np.int32),
         uv=np.concatenate([u for u, _ in feats]).astype(np.float32),
-        des=np.concatenate([d for _, d in feats]).astype(np.uint8),
-        jax_cam_in_ob=poses, jax_status=status, jax_keyframes=kfs,
-        model_pts=model_pts, jax_add=add, jax_adds=adds)
-    print(f"wrote {args.out}: features/frame {min(map(len, uv_jax))}-"
-          f"{max(map(len, uv_jax))}, FAIL {int((status == 0).sum())}, "
-          f"keyframes {len(kfs)}, mean ADD {add.mean() * 1e3:.3f} mm, "
-          f"ADD-S {adds.mean() * 1e3:.3f} mm")
+        des=np.concatenate([d for _, d in feats]).astype(np.uint8))
+    msg = ""
+    if args.sequence != "bench70":
+        model_pts = gt_surface_points(20000).astype(np.float32)
+        add, adds = pose_errors(poses, seq["cam_in_obs"], model_pts)
+        arrays.update(jax_cam_in_ob=poses, jax_status=status,
+                      jax_keyframes=kfs, model_pts=model_pts, jax_add=add,
+                      jax_adds=adds)
+        msg = (f", FAIL {int((status == 0).sum())}, keyframes {len(kfs)}, "
+               f"mean ADD {add.mean() * 1e3:.3f} mm, ADD-S "
+               f"{adds.mean() * 1e3:.3f} mm")
+    np.savez_compressed(out, **arrays)
+    print(f"wrote {out}: {len(feats)} frames, features/frame "
+          f"{min(map(len, uv_jax))}-{max(map(len, uv_jax))}{msg}")
 
 
 if __name__ == "__main__":

@@ -107,22 +107,32 @@ def test_orb_detection_matches_jax():
                                   bits_t.numpy())
 
 
-def test_orb_fixture_is_current():
-    """The committed 30-frame ORB fixture equals a fresh detection of its
-    first two frames (regenerate with tests/fixtures/gen_tracker_orb.py)."""
+def test_orb_fixture_is_current(tmp_path):
+    """Each committed ORB fixture equals a fresh detection of its first two
+    frames (regenerate with tests/fixtures/gen_tracker_orb.py --sequence
+    orbit30|bench70|easy120): the 30-frame orbit of the GPU smoke run, the
+    70 frames of the bench's tracking lines, and the 120-frame easy run of
+    benchmark_synthetic, whose frames go through a dataset folder and the
+    driver's mask erosion first."""
     pytest.importorskip("cv2", reason="re-detection needs cv2")
-    from fixtures.gen_tracker_orb import detect_all, orbit_frames
+    from fixtures.gen_tracker_orb import OUTS, detect_all, tracker_inputs
 
-    fx = np.load(FIXTURE)
-    counts = fx["counts"]
-    assert len(counts) == 30 and counts.min() > 1500
-    assert counts.max() <= OrbMatcher.FEAT_CAP
-    fresh = detect_all(orbit_frames(2))
-    off = 0
-    for k, (uv, des) in enumerate(fresh):
-        n = counts[k]
-        np.testing.assert_array_equal(uv, fx["uv"][off:off + n])
-        np.testing.assert_array_equal(des, fx["des"][off:off + n])
-        off += n
-    assert fx["jax_cam_in_ob"].shape == (30, 4, 4)
-    assert (fx["jax_status"] != 0).all()   # no FAIL frame in the JAX run
+    frames = {"orbit30": 30, "bench70": 70, "easy120": 120}
+    for name, n_frames in frames.items():
+        fx = np.load(os.path.join(os.path.dirname(FIXTURE), OUTS[name]))
+        counts = fx["counts"]
+        assert len(counts) == n_frames and counts.min() > 1500, name
+        assert counts.max() <= OrbMatcher.FEAT_CAP
+        _, colors, masks = tracker_inputs(name, 2, str(tmp_path / name))
+        off = 0
+        for k, (uv, des) in enumerate(detect_all(colors, masks)):
+            n = counts[k]
+            np.testing.assert_array_equal(uv, fx["uv"][off:off + n],
+                                          err_msg=name)
+            np.testing.assert_array_equal(des, fx["des"][off:off + n],
+                                          err_msg=name)
+            off += n
+        if name != "bench70":
+            assert fx["jax_cam_in_ob"].shape == (n_frames, 4, 4)
+            # no FAIL frame in the JAX run
+            assert (fx["jax_status"] != 0).all(), name

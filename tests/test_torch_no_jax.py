@@ -17,6 +17,9 @@ names = [m.name for m in pkgutil.walk_packages(bundlesdf_tpu_torch.__path__,
                                                "bundlesdf_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+# the measurement harness: profiling, the bench and the protocol driver
+assert {"bundlesdf_tpu_torch.utils.profiling", "bundlesdf_tpu_torch.bench",
+        "bundlesdf_tpu_torch.benchmark_synthetic"} <= set(names)
 import chip_smoke
 assert not any(k in ("jax", "cv2", "yaml", "sklearn")
                or k.startswith(("jax.", "bundlesdf_tpu.", "sklearn."))
@@ -30,8 +33,8 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=300,
                           env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode == 0, proc.stderr
-    # ops, nof, utils, tracker, matcher, eval with their modules, and the
-    # tracker-only orchestrator
+    # ops, nof, utils, tracker, matcher, eval with their modules, the
+    # orchestrator, the drivers and the measurement harness
     assert int(proc.stdout.split()[-1]) >= 30
 
 
