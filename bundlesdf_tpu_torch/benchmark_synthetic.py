@@ -18,8 +18,9 @@ first-frame-align + ICP protocol of the reference's
 
 Differences from the JAX driver:
 - `--device` (the card unless `cpu`) replaces `--platform`;
-- `--orb_features PATH` replays stored ORB features (the card has no cv2;
-  `tests/fixtures/gen_tracker_orb.py --sequence easy120` writes them for
+- ORB features are detected live by the port's own detector
+  (`matcher/orb.py`); `--orb_features PATH` replays stored ones instead
+  (`tests/fixtures/gen_tracker_orb.py --sequence easy120` writes cv2's for
   the 120-frame easy run);
 - `--track_override` values are read without PyYAML, to what
   `yaml.safe_load` gives, and forms beyond null, bools, decimal numbers,
@@ -241,7 +242,7 @@ def main(argv=None):
     ap.add_argument("--orb_features", default="",
                     help="replay stored ORB features (an .npz of "
                          "tests/fixtures/gen_tracker_orb.py) instead of "
-                         "detecting with cv2")
+                         "detecting live")
     ap.add_argument("--track_override", action="append", default=[],
                     help="tracker-config delta 'dotted.key=value', e.g. "
                          "bundle.reassoc_iters=7 (repeatable; A/B harness)")

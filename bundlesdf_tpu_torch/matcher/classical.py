@@ -1,17 +1,20 @@
 """Classical weight-free matcher: ORB keypoints + mutual nearest neighbor.
 
-Port of `bundlesdf_tpu/matcher/classical.py`. ORB detection stays on the
-host (cv2, imported only inside `detect_features`); the per-frame result
-is cached on the device as a +/-1 bit expansion of the descriptors, and
-every pair of a call is matched at once by `orb_match_core`: hamming
-distance = (nbits - bitsA @ bitsB^T) / 2, an exact float32 matmul (TF32
-is off, see `bundlesdf_tpu_torch/__init__.py`), then the two-way ratio
-test and the mutual check.
+Port of `bundlesdf_tpu/matcher/classical.py`. Detection runs on the
+matcher's device: `detect_features` crops the frame to its mask and hands
+the crop to `matcher/orb.py`, the counterpart of the cv2 ORB the JAX
+package calls (on the card, on a stream of its own, so it overlaps the
+tracker's queued work). The per-frame result is cached on the device as a
++/-1 bit expansion of the descriptors, and every pair of a call is matched
+at once by `orb_match_core`: hamming distance = (nbits - bitsA @ bitsB^T)
+/ 2, an exact float32 matmul (TF32 is off, see
+`bundlesdf_tpu_torch/__init__.py`), then the two-way ratio test and the
+mutual check.
 
-The host detection is replaceable: `OrbMatcher(detector=fn)` takes
-`fn(frame) -> (uv (n,2) float32, des (n,32) uint8)` — already capped at
-`FEAT_CAP`, in full-res pixel coords — in place of cv2 (the GPU smoke run
-feeds features detected elsewhere through it).
+Detection is replaceable: `OrbMatcher(detector=fn)` takes `fn(frame) ->
+(uv (n,2) float32, des (n,32) uint8)`, numpy or tensors, already capped at
+`FEAT_CAP`, in full-res pixel coords, in place of `detect_features`; the
+replay runs feed stored features through it.
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ import numpy as np
 import torch
 
 from bundlesdf_tpu_torch import resolve_device
+from bundlesdf_tpu_torch.matcher import orb
+from bundlesdf_tpu_torch.utils.common import resize_nearest
 
 
 class OrbMatcher:
@@ -34,87 +39,108 @@ class OrbMatcher:
         opt-in two-tier fallback (min_strict > 0) — pairs whose strict-gate
         match count falls below min_strict use ratio_loose (see the JAX
         package's docstring for the measurements behind the defaults).
-        @device: where the descriptor cache and the matching live.
-        @detector: optional replacement of the cv2 host detection."""
+        @device: where detection, the descriptor cache and the matching
+        live. @detector: optional replacement of `detect_features`."""
         self.n_features = int(n_features)
         self.ratio = ratio
         self.ratio_loose = ratio_loose
         self.min_strict = int(min_strict)
         self.device = resolve_device(device)
         self.detector = detector
-        self._orb = None
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
         self._cache: dict[int, tuple] = {}
         if feat_cap is not None:
             self.FEAT_CAP = int(feat_cap)
 
-    # -- host detection ---------------------------------------------------
+    # -- detection ----------------------------------------------------------
     def detect_features(self, frame):
-        """cv2 ORB on the mask bbox crop zoomed to DETECT_SIZE (the
-        reference's processImagePair resizes crops to 400x400; here it is
-        per frame, with no rotation warp, since oriented BRIEF is in-plane
-        rotation invariant). Returns (uv (n,2) float32 full-res, des
-        (n,32) uint8), the FEAT_CAP strongest responses."""
-        import cv2
-
-        if self._orb is None:
-            self._orb = cv2.ORB_create(nfeatures=self.n_features,
-                                       fastThreshold=5)
-        empty = (np.zeros((0, 2), np.float32), np.zeros((0, 32), np.uint8))
-        gray = cv2.cvtColor(np.asarray(frame.color), cv2.COLOR_RGB2GRAY)
-        mask = (np.asarray(frame.fg_mask) > 0).astype(np.uint8)
+        """ORB (`matcher/orb.py`) on the mask bbox crop zoomed to
+        DETECT_SIZE (the reference's processImagePair resizes crops to
+        400x400; here it is per frame, with no rotation warp, since
+        oriented BRIEF is in-plane rotation invariant). Returns (uv (n,2)
+        float32 full-res, des (n,32) uint8), tensors on the matcher's
+        device, the FEAT_CAP strongest responses. One host sync: the
+        keypoint count."""
+        dev = self.device
+        mask = np.asarray(frame.fg_mask) > 0
         vs, us = np.nonzero(mask)
         if len(vs) == 0:
-            return empty
+            return (torch.zeros((0, 2), dtype=torch.float32, device=dev),
+                    torch.zeros((0, 32), dtype=torch.uint8, device=dev))
         m = 10
         v0, v1 = max(vs.min() - m, 0), min(vs.max() + m + 1, mask.shape[0])
         u0, u1 = max(us.min() - m, 0), min(us.max() + m + 1, mask.shape[1])
-        crop = gray[v0:v1, u0:u1]
-        cmask = mask[v0:v1, u0:u1]
-        zoom = self.DETECT_SIZE / max(crop.shape)
+        cmask = mask[v0:v1, u0:u1].astype(np.uint8)
+        gray = orb.rgb_to_gray(orb.to_device(
+            np.asarray(frame.color)[v0:v1, u0:u1], dev))
+        zoom = self.DETECT_SIZE / max(cmask.shape)
         if abs(zoom - 1.0) > 0.05:
-            size = (max(int(round(crop.shape[1] * zoom)), 8),
-                    max(int(round(crop.shape[0] * zoom)), 8))
-            crop = cv2.resize(crop, size, interpolation=cv2.INTER_LINEAR)
-            cmask = cv2.resize(cmask, size, interpolation=cv2.INTER_NEAREST)
+            size = (max(int(round(cmask.shape[1] * zoom)), 8),
+                    max(int(round(cmask.shape[0] * zoom)), 8))
+            gray = orb.resize_linear(gray, size)
+            cmask = resize_nearest(cmask, size)
             zoom_uv = (size[0] / (u1 - u0), size[1] / (v1 - v0))
         else:
             zoom_uv = (1.0, 1.0)
-        kps, des = self._orb.detectAndCompute(crop, cmask)
-        if des is None or len(kps) == 0:
-            return empty
-        uv = (np.array([k.pt for k in kps], np.float32) / zoom_uv
-              + (u0, v0)).astype(np.float32)
+        out = orb.detect_and_compute(gray, orb.to_device(cmask, dev),
+                                     self.n_features)
+        pt = out["pt"].double()
+        uv = torch.stack([pt[:, 0] / zoom_uv[0] + float(u0),
+                          pt[:, 1] / zoom_uv[1] + float(v0)], 1)
+        uv, des = uv.to(torch.float32), out["des"]
         if len(uv) > self.FEAT_CAP:
-            order = np.argsort([-k.response for k in kps])[:self.FEAT_CAP]
+            order = torch.argsort(-out["response"], stable=True)
+            order = order[:self.FEAT_CAP]
             uv, des = uv[order], des[order]
         return uv, des
 
     # -- per-frame device cache -------------------------------------------
     def _frame_feats(self, frame):
-        """(uv host (n,2), des host (n,32) or None, bits (FEAT_CAP, nbits)
-        int8 +/-1 on the device, uv (FEAT_CAP, 2) float32 on the device),
-        cached by frame id."""
+        """(uv (n,2) float32, des (n,32) uint8 or None, bits (FEAT_CAP,
+        nbits) int8 +/-1, uv (FEAT_CAP, 2) float32), tensors on the
+        device, cached by frame id. On the card detection runs on the
+        matcher's stream, which the current stream then waits for."""
         hit = self._cache.get(frame.id)
         if hit is not None:
             return hit
-        uv, des = (self.detector(frame) if self.detector is not None
-                   else self.detect_features(frame))
-        uv = np.asarray(uv, np.float32).reshape(-1, 2)
-        if len(uv) == 0:
-            entry = (uv, None, None, None)
+        main = (torch.cuda.current_stream(self.device)
+                if self._stream is not None else None)
+        if main is not None:
+            with torch.cuda.stream(self._stream):
+                entry = self._build_entry(frame)
+            main.wait_stream(self._stream)
+            for t in entry:
+                if t is not None:
+                    t.record_stream(main)
         else:
-            des = np.asarray(des, np.uint8)
-            bits = np.unpackbits(des, axis=1).astype(np.int8) * 2 - 1
-            bits_p = np.zeros((self.FEAT_CAP, bits.shape[1]), np.int8)
-            bits_p[:len(bits)] = bits
-            uv_p = np.zeros((self.FEAT_CAP, 2), np.float32)
-            uv_p[:len(uv)] = uv
-            entry = (uv, des, torch.from_numpy(bits_p).to(self.device),
-                     torch.from_numpy(uv_p).to(self.device))
+            entry = self._build_entry(frame)
         if len(self._cache) >= self.CACHE_CAP:
             self._cache.pop(next(iter(self._cache)))
         self._cache[frame.id] = entry
         return entry
+
+    def _build_entry(self, frame):
+        uv, des = (self.detector(frame) if self.detector is not None
+                   else self.detect_features(frame))
+        uv = torch.as_tensor(uv, dtype=torch.float32,
+                             device=self.device).reshape(-1, 2)
+        n = len(uv)
+        if n == 0:
+            return (uv, None, None, None)
+        des = torch.as_tensor(des, dtype=torch.uint8, device=self.device)
+        # +/-1 expansion, bit order of np.unpackbits (most significant
+        # first), padded to the cap
+        shift = torch.arange(7, -1, -1, device=self.device,
+                             dtype=torch.uint8)
+        bits = ((des[:, :, None] >> shift) & 1).reshape(n, -1)
+        bits_p = torch.zeros((self.FEAT_CAP, bits.shape[1]),
+                             dtype=torch.int8, device=self.device)
+        bits_p[:n] = bits.to(torch.int8) * 2 - 1
+        uv_p = torch.zeros((self.FEAT_CAP, 2), dtype=torch.float32,
+                           device=self.device)
+        uv_p[:n] = uv
+        return (uv, des, bits_p, uv_p)
 
     def match_frames(self, frame_pairs):
         """@frame_pairs: [(fA, fB)] tracker Frame objects. Returns per-pair
@@ -139,7 +165,8 @@ class OrbMatcher:
         j_best, accept, dist = (res["j"].cpu().numpy(), res["ok"].cpu().numpy(),
                                 res["dist"].cpu().numpy())
         for k, i in enumerate(live):
-            (uvA, *_), (uvB, *_) = feats[i]
+            uvA, uvB = (feats[i][0][0].cpu().numpy(),
+                        feats[i][1][0].cpu().numpy())
             sel = np.nonzero(accept[k, :len(uvA)])[0]
             j = j_best[k, sel]
             conf = 1.0 / (1.0 + dist[k, sel] / 64.0)

@@ -6,11 +6,15 @@ given ground-truth poses-in-model for every frame, correspondences are
 keypoints whose GT-transformed 3D points coincide within 2 mm. It plugs
 into the pluggable-matcher slot (`BundleSdf(matcher=GtMatcher(...))`), so
 an oracle run exercises the whole tracker with perfect data association.
-Host numpy; cv2 is imported only where keypoints are detected.
+Keypoints come from the port's ORB (`matcher/orb.py`, detection only, on
+the whole frame) on the matcher's device; the matching is host numpy.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from bundlesdf_tpu_torch import resolve_device
+from bundlesdf_tpu_torch.matcher import orb
 
 
 class GtMatcher:
@@ -21,16 +25,20 @@ class GtMatcher:
         model frame.
     @max_dist: acceptance radius in meters (ref: 0.002, the hard-coded
         `0.002*0.002` squared gate at FeatureManager.cpp:1025).
+    @device: where the keypoints are detected.
+    @detector: optional `fn(frame) -> uv (n,2)` in place of the port's
+        ORB keypoints.
     """
 
     CACHE_CAP = 256
 
     def __init__(self, gt_poses, max_dist: float = 0.002,
-                 n_features: int = 2000):
+                 n_features: int = 2000, device="cuda", detector=None):
         self.gt_poses = gt_poses
         self.max_dist = float(max_dist)
         self.n_features = int(n_features)
-        self._orb = None
+        self.device = resolve_device(device)
+        self.detector = detector
         self._cache: dict[int, tuple] = {}
 
     def _gt_pose(self, frame) -> np.ndarray:
@@ -41,6 +49,14 @@ class GtMatcher:
         except (KeyError, TypeError):
             return np.asarray(self.gt_poses[frame.id], np.float64)
 
+    def detect_keypoints(self, frame):
+        """(n, 2) float32 ORB keypoints of the whole frame (host)."""
+        color = orb.to_device(frame.color, self.device)
+        gray = orb.rgb_to_gray(color) if color.ndim == 3 else color
+        out = orb.detect_and_compute(gray, None, self.n_features,
+                                     descriptors=False)
+        return out["pt"].cpu().numpy()
+
     def _keypts(self, frame):
         """(uv (N,2) float32, pts_model (N,3) float64) of keypoints with
         valid depth, GT-transformed into the model frame; cached per
@@ -48,17 +64,10 @@ class GtMatcher:
         hit = self._cache.get(frame.id)
         if hit is not None:
             return hit
-        import cv2
-
-        if self._orb is None:
-            self._orb = cv2.ORB_create(nfeatures=self.n_features,
-                                       fastThreshold=5)
-        color = np.asarray(frame.color)
-        gray = (cv2.cvtColor(color, cv2.COLOR_RGB2GRAY)
-                if color.ndim == 3 else color)
-        kps = self._orb.detect(gray, None)
+        uv = (self.detector(frame) if self.detector is not None
+              else self.detect_keypoints(frame))
         xyz = np.asarray(frame.xyz_map)
-        uv = np.asarray([k.pt for k in kps], np.float32).reshape(-1, 2)
+        uv = np.asarray(uv, np.float32).reshape(-1, 2)
         if len(uv):
             ij = np.round(uv).astype(np.int64)
             ij[:, 0] = np.clip(ij[:, 0], 0, xyz.shape[1] - 1)

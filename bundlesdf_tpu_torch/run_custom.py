@@ -11,9 +11,11 @@ modes, flags and config mutations. `run_video` tracks the video online
 with the NOF on and then, unless told to skip it, runs `global_refine`:
 the offline NOF at the refine config, trained from the artifacts the
 online run saved, which leaves the cleaned, real-world and textured meshes
-and the optimized keyframe poses. Runs on the CUDA card unless
-`--device cpu`; imports neither cv2 nor PyYAML except in `draw_pose`'s
-drawing. `--use_segmenter` is not ported yet (`utils/segmentation.py`).
+and the optimized keyframe poses. `--use_segmenter` reads each frame's
+mask through `utils/segmentation.py::Segmenter` (with its background-cloud
+subtraction) instead of the reader. Runs on the CUDA card unless
+`--device cpu`; imports neither cv2 nor PyYAML (`draw_pose` draws with
+`utils/viz.py`).
 """
 from __future__ import annotations
 
@@ -31,8 +33,10 @@ from bundlesdf_tpu_torch.config import (apply_dotted, default_nerf_config,
                                         load_config, load_yaml)
 from bundlesdf_tpu_torch.datasets import YcbineoatReader
 from bundlesdf_tpu_torch.mesh import Mesh
-from bundlesdf_tpu_torch.utils.common import set_logging_format, set_seed
+from bundlesdf_tpu_torch.utils.common import (resize_nearest,
+                                              set_logging_format, set_seed)
 from bundlesdf_tpu_torch.utils.png import read_png, write_png
+from bundlesdf_tpu_torch.utils.segmentation import Segmenter
 from bundlesdf_tpu_torch.utils.viz import draw_posed_3d_box
 
 # the offline refine's changes to the saved online NOF config (ref
@@ -104,10 +108,6 @@ def run_one_video(video_dir, out_folder, use_segmenter=False, use_gui=False,
     value disables the online NOF.
     @matcher: optional matcher instance for BundleSdf (None = ORB).
     @device: where tracking and the NOF run (the card unless "cpu")."""
-    if use_segmenter:
-        raise NotImplementedError("--use_segmenter: utils/segmentation.py is "
-                                  "not ported to bundlesdf_tpu_torch "
-                                  "(ROADMAP.md queue 1, item 2)")
     set_seed(0)
     os.makedirs(out_folder, exist_ok=True)
     cfg_track, cfg_nerf = make_configs(out_folder, debug_level)
@@ -125,11 +125,24 @@ def run_one_video(video_dir, out_folder, use_segmenter=False, use_gui=False,
                         start_nerf_keyframes=start_nerf_keyframes,
                         use_gui=use_gui, matcher=matcher, device=device)
     reader = YcbineoatReader(video_dir=video_dir, shorter_side=480)
+
+    # per-frame segmenter (ref run_custom.py:64-91: reads the mask via
+    # Segmenter.run on the rgb->masks path instead of the reader; XMem is
+    # excluded upstream for license, so run() reads precomputed masks and
+    # optionally subtracts a static background cloud)
+    segmenter = Segmenter(cfg_track) if use_segmenter else None
+
     erode = cfg_track.get("erode_mask", 0)
     for i in range(0, len(reader.color_files), stride):
         color = reader.get_color(i)
         depth = reader.get_depth(i)
-        mask = reader.get_mask(i)
+        if segmenter is not None:
+            mask_file = reader.color_files[i].replace("rgb", "masks")
+            mask = segmenter.run(mask_file, depth=depth, K=reader.K)
+            if mask is not None and mask.shape[:2] != color.shape[:2]:
+                mask = resize_nearest(mask, (color.shape[1], color.shape[0]))
+        else:
+            mask = reader.get_mask(i)
         if erode > 0 and mask is not None:
             mask = erode_mask(mask, erode)
         # occluder masks (HO3D masks_hand layout) ride along when present
@@ -203,7 +216,7 @@ def postprocess_mesh(out_folder):
 
 def draw_pose(out_folder):
     """Render pose box overlays (ref run_custom.py:191-206); the lines are
-    drawn with cv2."""
+    drawn as cv2.line draws them (`utils/viz.py`)."""
     K = np.loadtxt(f"{out_folder}/cam_K.txt").reshape(3, 3)
     color_files = sorted(glob.glob(f"{out_folder}/color/*"))
     mesh_file = f"{out_folder}/textured_mesh.obj"

@@ -29,7 +29,9 @@ from bundlesdf_tpu_torch.tracker.pool import (FramePool, covis_core,
                                               orb_lift_ransac_slots)
 from bundlesdf_tpu_torch.utils.se3 import (kabsch_np,
                                            rot_geodesic_ignore_cam_z_np)
+from bundlesdf_tpu_torch.utils.png import write_png
 from bundlesdf_tpu_torch.utils.transfer import HostPull
+from bundlesdf_tpu_torch.utils.viz import draw_line
 
 
 class Bundler:
@@ -804,10 +806,10 @@ class Bundler:
     # FeatureManager.cpp:445-464 and OptimizerGpu savePoses LossGPU.cpp:26-46)
     # ------------------------------------------------------------------
     def viz_corres_between(self, fA: Frame, fB: Frame, tag: str):
-        """Side-by-side match visualization (SPDLOG>=3)."""
+        """Side-by-side match visualization (SPDLOG>=3), lines as cv2.line
+        draws them (`utils/viz.py::draw_line`), written as an RGB PNG."""
         if int(self.cfg.get("SPDLOG", 1)) < 3:
             return
-        import cv2
         m = self.matches.get((fA.id, fB.id))
         canvas = np.concatenate([fA.color, fB.color], axis=1).copy()
         if m is not None and len(m["uvA"]) > 0:
@@ -818,14 +820,13 @@ class Bundler:
                                for p in (2654435761, 805459861, 40503)],
                               axis=-1).astype(int)
             for (uA, vA), (uB, vB), c in zip(m["uvA"], m["uvB"], colors):
-                cv2.line(canvas, (int(uA), int(vA)),
-                         (int(uB) + fA.W, int(vB)), tuple(int(x) for x in c),
-                         1)
+                draw_line(canvas, (int(uA), int(vA)),
+                          (int(uB) + fA.W, int(vB)), tuple(int(x) for x in c),
+                          1)
         out_dir = os.path.join(self.cfg["debug_dir"], fA.id_str)
         os.makedirs(out_dir, exist_ok=True)
-        cv2.imwrite(os.path.join(
-            out_dir, f"corres_{fA.id_str}_{fB.id_str}_{tag}.png"),
-            canvas[..., ::-1])
+        write_png(os.path.join(
+            out_dir, f"corres_{fA.id_str}_{fB.id_str}_{tag}.png"), canvas)
 
     def _save_ba_poses(self, frames, tag: str):
         """Pre/post-BA pose dumps (SPDLOG>=2)."""

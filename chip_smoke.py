@@ -67,7 +67,18 @@ Phases, one printed line each (or a few), any failure exits non-zero:
      features replayed from tests/fixtures/tracker_orb_easy120.npz: its
      `metrics.json` against the JAX driver's run stored in that file (no
      new FAIL frame, mean ADD at most max(2 x JAX, JAX + 1 mm));
- 13. a JSON line of per-kernel results, then the final status line.
+ 13. the port's ORB detector (`bundlesdf_tpu_torch/matcher/orb.py`, no
+     cv2) on the 30 frames of phase 7, as the matcher crops them: wall
+     and device ms a frame, host syncs a frame, its share of phase 7's
+     tracked frame; its keypoints against its own CPU run of the same
+     frames (>= 99 % the same) and against cv2's stored in
+     tracker_orb_30f.npz (>= 95 % found, <= 2 of 256 bits apart on
+     average);
+ 14. phase 12 with live detection (no `--orb_features`), gated the same
+     way, its tracked frames/s beside phase 12's; then
+     `run_custom.draw_pose` on three frames of its output and a two-frame
+     `run_one_video(use_segmenter=True)`; fails if cv2 was imported;
+ 15. a JSON line of per-kernel results, then the final status line.
 --profile adds torch.profiler tables of 5 NOF steps, of 5 tracked frames,
 of 20 refine steps and of the online loop's first NOF batch. Needs a CUDA
 card, nvcc and g++ (the native library); refuses to run on the CPU.
@@ -1463,6 +1474,227 @@ def phase_protocol():
     return {**m, "seconds": secs}
 
 
+def _orb_frames(seq):
+    """The frames as the tracker's Frame hands them to the matcher."""
+    from types import SimpleNamespace
+    return [SimpleNamespace(id=i, id_str=seq["id_strs"][i],
+                            color=seq["colors"][i],
+                            fg_mask=(seq["masks"][i] > 0).astype(np.uint8))
+            for i in range(len(seq["colors"]))]
+
+
+def _feature_overlap(uv_a, des_a, uv_b, des_b, k=4):
+    """(share of b's keypoints that a holds at the same position within
+    1e-3 px, mean differing descriptor bits over those). Keypoints of two
+    octaves can land on one position, so each is held to the closest
+    descriptor among a's (up to @k) keypoints there."""
+    from scipy.spatial import cKDTree
+    d, j = cKDTree(uv_a).query(uv_b, k=k, distance_upper_bound=1e-3)
+    near = np.isfinite(d)
+    hit = near.any(1)
+    j = np.where(near, j, 0)
+    bits = np.unpackbits(des_a[j] ^ des_b[:, None], axis=2).sum(2)
+    bits = np.where(near, bits, 256).min(1)[hit]
+    return float(hit.mean()), float(bits.mean()) if hit.any() else 256.0
+
+
+def phase_orb(seq, fx, tracked_ms):
+    """The port's ORB on the card over phase 7's frames: times, host
+    syncs, and its keypoints against its CPU run and against cv2's."""
+    import warnings
+
+    from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
+    from bundlesdf_tpu_torch.utils.profiling import (device_events,
+                                                     device_trace,
+                                                     interval_union_ms,
+                                                     load_trace, trace_path)
+    frames = _orb_frames(seq)
+    card = OrbMatcher()                     # the card, as the tracker's
+    card.detect_features(frames[0])
+    torch.cuda.synchronize()
+    walls, syncs, got = [], 0, []
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for f in frames:
+                torch.cuda.synchronize()
+                n0 = len(caught)
+                t0 = time.perf_counter()
+                uv, des = card.detect_features(f)
+                syncs += sum("synchroniz" in str(w.message)
+                             for w in caught[n0:])
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+                got.append((uv, des))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = [(uv.cpu().numpy(), des.cpu().numpy()) for uv, des in got]
+    with tempfile.TemporaryDirectory(prefix="bsdf_orb_") as tmp:
+        with device_trace(tmp, "cuda"):
+            for f in frames:
+                card.detect_features(f)
+        dev_ms = interval_union_ms(device_events(
+            load_trace(trace_path(tmp)))) / len(frames)
+    t0 = time.perf_counter()
+    cpu = OrbMatcher(device="cpu")
+    ref = [tuple(t.numpy() for t in cpu.detect_features(f)) for f in frames]
+    cpu_ms = 1e3 * (time.perf_counter() - t0) / len(frames)
+    offs = np.concatenate([[0], np.cumsum(fx["counts"])])
+    same, same_bits, cv_hit, cv_bits = [], [], [], []
+    for k, ((uv, des), (uv_c, des_c)) in enumerate(zip(got, ref)):
+        s1, b1 = _feature_overlap(uv, des, uv_c, des_c)
+        s2, _ = _feature_overlap(uv_c, des_c, uv, des)
+        same.append(min(s1, s2))
+        same_bits.append(b1)
+        s, b = _feature_overlap(uv, des, fx["uv"][offs[k]:offs[k + 1]],
+                                fx["des"][offs[k]:offs[k + 1]])
+        cv_hit.append(s)
+        cv_bits.append(b)
+    wall = float(np.median(walls))
+    counts = [len(uv) for uv, _ in got]
+    res = {"frames": len(frames), "wall_ms": wall,
+           "wall_ms_mean": float(np.mean(walls)), "device_ms": dev_ms,
+           "host_syncs_per_frame": syncs / len(frames),
+           "cpu_ms": cpu_ms, "share_of_tracked_frame": wall / tracked_ms,
+           "tracked_ms": tracked_ms, "card_eq_cpu_min": min(same),
+           "card_cpu_bits_max": max(same_bits),
+           "vs_cv2_found_min": min(cv_hit),
+           "vs_cv2_bits_mean": float(np.mean(cv_bits))}
+    print(f"orb: {len(frames)} frames 480x640, mask crops zoomed to 400 px, "
+          f"{min(counts)}-{max(counts)} keypoints a frame; wall "
+          f"{wall:.3f} ms a frame (median; mean {res['wall_ms_mean']:.3f}), "
+          f"device {dev_ms:.3f} ms a frame (profiler union), host syncs "
+          f"{res['host_syncs_per_frame']:.2f} a frame, CPU {cpu_ms:.1f} ms a "
+          f"frame; {100 * wall / tracked_ms:.1f} % of phase 7's tracked "
+          f"frame ({tracked_ms:.3f} ms, replayed features); card = CPU: "
+          f"keypoints {100 * min(same):.2f} % (worst frame), descriptor bits "
+          f"apart {max(same_bits):.4f}; against cv2 (fixture): found "
+          f"{100 * min(cv_hit):.2f} % (worst frame), bits apart "
+          f"{res['vs_cv2_bits_mean']:.4f} on average", flush=True)
+    if min(same) < 0.99:
+        raise AssertionError(f"orb: card and CPU keypoints agree on "
+                             f"{min(same):.4f} < 0.99 of a frame")
+    if min(cv_hit) < 0.95 or res["vs_cv2_bits_mean"] > 2:
+        raise AssertionError(f"orb: against cv2, found {min(cv_hit):.4f} "
+                             f"(>= 0.95), bits {res['vs_cv2_bits_mean']:.3f} "
+                             f"(<= 2)")
+    if res["host_syncs_per_frame"] > 1:
+        raise AssertionError(f"orb: {res['host_syncs_per_frame']} host "
+                             f"syncs a frame (at most 1)")
+    return res
+
+
+def _draw_pose_check(out, ids):
+    """`run_custom.draw_pose` on frames @ids of a run in @out: the GT mesh
+    placed in the run's model frame (by the first frame's tracked and
+    annotated poses), the run's tracked poses; returns the box pixels
+    drawn a frame."""
+    from bundlesdf_tpu_torch import run_custom
+    from bundlesdf_tpu_torch.benchmark_synthetic import gt_mesh
+    from bundlesdf_tpu_torch.utils.png import read_png
+    pose_dir = os.path.join(out, "pose")
+    for sub in ("color", "ob_in_cam"):
+        os.makedirs(os.path.join(pose_dir, sub))
+    shutil.copy(os.path.join(out, "video", "cam_K.txt"), pose_dir)
+    pred0 = np.loadtxt(os.path.join(out, "run", "ob_in_cam", "0000.txt"))
+    gt0 = np.loadtxt(os.path.join(out, "video", "annotated_poses",
+                                  "0000.txt"))
+    for i in ids:
+        shutil.copy(os.path.join(out, "video", "rgb", f"{i}.png"),
+                    os.path.join(pose_dir, "color"))
+        shutil.copy(os.path.join(out, "run", "ob_in_cam", f"{i}.txt"),
+                    os.path.join(pose_dir, "ob_in_cam"))
+    mesh = gt_mesh(0.08)
+    mesh.apply_transform(np.linalg.inv(pred0) @ gt0)
+    mesh.export(os.path.join(pose_dir, "textured_mesh.obj"))
+    run_custom.draw_pose(pose_dir)
+    drawn = []
+    for i in ids:
+        vis = read_png(os.path.join(pose_dir, "pose_vis", f"{i}.png"))
+        src = read_png(os.path.join(pose_dir, "color", f"{i}.png"))[..., :3]
+        changed = (vis != src).any(-1)
+        if not (vis[changed] == (255, 255, 0)).all():
+            raise AssertionError("draw_pose: a changed pixel is not the "
+                                 "box colour")
+        drawn.append(int(changed.sum()))
+    if min(drawn) < 200:
+        raise AssertionError(f"draw_pose: box pixels a frame {drawn}")
+    return drawn
+
+
+def _segmenter_check(out, n=2):
+    """`run_one_video(use_segmenter=True)` on the first @n frames of the
+    dataset folder in @out; returns the statuses of its frames."""
+    from bundlesdf_tpu_torch import run_custom
+    from bundlesdf_tpu_torch.benchmark_synthetic import collect_frame_statuses
+    video = os.path.join(out, "seg_video")
+    for sub in ("rgb", "depth", "masks"):
+        os.makedirs(os.path.join(video, sub))
+        for i in range(n):
+            shutil.copy(os.path.join(out, "video", sub, f"{i:04d}.png"),
+                        os.path.join(video, sub))
+    shutil.copy(os.path.join(out, "video", "cam_K.txt"), video)
+    run = os.path.join(out, "seg_run")
+    run_custom.run_one_video(video, run, use_segmenter=True, debug_level=1,
+                             skip_refine=True, start_nerf_keyframes=10 ** 9)
+    ids = [f"{i:04d}" for i in range(n)]
+    status = collect_frame_statuses(run, ids)
+    for i in ids:
+        pose = np.loadtxt(os.path.join(run, "ob_in_cam", f"{i}.txt"))
+        if not np.isfinite(pose).all():
+            raise AssertionError(f"use_segmenter: frame {i} pose not finite")
+    if any(s in ("FAIL", "MISSING") for s in status):
+        raise AssertionError(f"use_segmenter: statuses {status}")
+    return status
+
+
+def phase_live(replay):
+    """Phase 12 with the port's ORB detecting live on the card, gated the
+    same way against the JAX driver's run; then draw_pose and the
+    segmenter on its output."""
+    from bundlesdf_tpu_torch import benchmark_synthetic as driver
+    fx = np.load(EASY_FIXTURE)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="bsdf_live_") as out:
+        m = driver.main(["--out", out, "--protocol", "easy", "--n_frames",
+                         "120", "--no_nerf", "--skip_refine"])
+        ids = [f"{i:04d}" for i in range(120)]
+        status = driver.collect_frame_statuses(os.path.join(out, "run"), ids)
+        t1 = time.perf_counter()
+        drawn = _draw_pose_check(out, ["0000", "0060", "0119"])
+        seg = _segmenter_check(out)
+    secs = time.perf_counter() - t0
+    jax_add_cm = float(fx["jax_add"].mean()) * 100
+    jax_fail = fx["jax_status"] == 0
+    fail = np.array([s == "FAIL" for s in status])
+    fps, fps_replay = 120 / m["wall_s"], 120 / replay["wall_s"]
+    print(f"live protocol easy, 120 frames 480x640, tracker only, ORB "
+          f"detected on the card: {t1 - t0:.1f} s (wall_s {m['wall_s']}, "
+          f"{fps:.3f} frames/s; phase 12's replay wall_s "
+          f"{replay['wall_s']}, {fps_replay:.3f} frames/s), FAIL "
+          f"{int(fail.sum())} (JAX {int(jax_fail.sum())}), ADD "
+          f"{m['ADD(cm)']:.4f} cm ADD-S {m['ADDS(cm)']:.4f} cm AUC "
+          f"{m['ADD_AUC(%)']:.2f} / {m['ADDS_AUC(%)']:.2f} % (replay ADD "
+          f"{replay['ADD(cm)']:.4f} cm; JAX driver ADD {jax_add_cm:.4f} cm); "
+          f"draw_pose box pixels {drawn}; use_segmenter statuses {seg}; "
+          f"{secs - (t1 - t0):.1f} s for both", flush=True)
+    if "MISSING" in status:
+        raise AssertionError("live protocol: a frame wrote no frame.txt")
+    new_fail = np.nonzero(fail & ~jax_fail)[0]
+    if len(new_fail):
+        raise AssertionError(f"live protocol: frames {new_fail.tolist()} "
+                             f"FAIL that did not FAIL in the JAX run")
+    if not m["ADD(cm)"] <= max(2 * jax_add_cm, jax_add_cm + 0.1):
+        raise AssertionError(f"live protocol: mean ADD {m['ADD(cm)']} cm "
+                             f"above max(2 x JAX, JAX + 1 mm), JAX "
+                             f"{jax_add_cm} cm")
+    if "cv2" in sys.modules:
+        raise AssertionError("the port imported cv2")
+    return {**m, "frames_per_s": fps, "replay_frames_per_s": fps_replay,
+            "seconds": secs}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this smoke run "
@@ -1485,7 +1717,7 @@ def main():
     seq, feats, fx = tracker_inputs()
     phase_reader(seq)
     phase_tracker_components(seq, feats)
-    phase_tracker_main(seq, feats, fx)
+    tracked = phase_tracker_main(seq, feats, fx)
     if "--profile" in sys.argv[1:]:
         phase_tracker_profile(seq, feats)
     from bundlesdf_tpu_torch.config import default_track_config
@@ -1514,8 +1746,15 @@ def main():
     protocol = phase_protocol()
     print(f"phases 11-12: {bench['seconds'] + protocol['seconds']:.1f} s",
           flush=True)
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    t13 = time.perf_counter()
+    orb = phase_orb(seq, fx, tracked["ms_per_frame"])
+    live = phase_live(protocol)
+    print(f"phases 13-14: {time.perf_counter() - t13:.1f} s", flush=True)
+    print(json.dumps({"orb": orb, "live": {k: live[k] for k in (
+        "ADD(cm)", "ADDS(cm)", "wall_s", "frames_per_s",
+        "replay_frames_per_s")}}), flush=True)
+    if "jax" in sys.modules or "cv2" in sys.modules:
+        raise AssertionError("the port imported jax or cv2")
     # ms, plain_ms, library_ms and the bound: the rows of a real step
     print(json.dumps({"kernels": [{
         "name": "scatter_rows", "route": "cuda",

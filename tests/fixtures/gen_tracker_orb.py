@@ -22,14 +22,14 @@ has no cv2), one file per `--sequence`:
 
 (~2 min and ~1 GB for orbit30, ~1 min for bench70, ~10 min for easy120.)
 
-Features come from the port's own host detection
-(`bundlesdf_tpu_torch.matcher.classical.OrbMatcher.detect_features`: cv2
-ORB on the mask crop zoomed to 400 px, FEAT_CAP 2048), checked equal to
-the JAX matcher's detection on every frame. The trajectory is the JAX
-package's tracker-only `BundleSdf.run` (NOF off, fused matcher, default
-track config) on the CPU. `chip_smoke.py` replays the features through
-`OrbMatcher(detector=...)` on a machine without cv2 and holds the port's
-trajectory against the stored one.
+Features come from cv2 as the JAX matcher detects them
+(`tests/orb_cv2.py::detect_cv2`: cv2 ORB on the mask crop zoomed to 400
+px, FEAT_CAP 2048), checked equal to the JAX matcher's detection on every
+frame. The trajectory is the JAX package's tracker-only `BundleSdf.run`
+(NOF off, fused matcher, default track config) on the CPU. `chip_smoke.py`
+replays the features through `OrbMatcher(detector=...)` and holds the
+port's trajectory against the stored one, and holds the port's own
+detector (`matcher/orb.py`) against the stored features.
 
 Stored arrays: `counts` (F,) features per frame; `uv` (sum,2) float32 and
 `des` (sum,32) uint8, frame after frame; except for bench70,
@@ -92,15 +92,11 @@ def tracker_inputs(sequence, n_frames, tmp):
 
 
 def detect_all(colors, masks):
-    """The port's detection on each (color, mask) as the tracker's Frame
-    holds them (`fg_mask` = mask > 0)."""
-    from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
-    orb = OrbMatcher(device="cpu")
-    feats = []
-    for c, m in zip(colors, masks):
-        fr = SimpleNamespace(color=c, fg_mask=(m > 0).astype(np.uint8))
-        feats.append(orb.detect_features(fr))
-    return feats
+    """cv2's detection (the JAX matcher's) on each (color, mask) as the
+    tracker's Frame holds them (`fg_mask` = mask > 0)."""
+    from orb_cv2 import detect_cv2
+    return [detect_cv2(c, (m > 0).astype(np.uint8))
+            for c, m in zip(colors, masks)]
 
 
 def jax_detect_all(colors, masks):

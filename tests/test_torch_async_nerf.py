@@ -3,18 +3,29 @@
 `sync_max_delay=0`; tracking continues while a batch is in flight and the
 sync-back still lands; keyframes accumulate during a batch; the
 `async_host` worker thread drives whole batches; a worker error surfaces
-on the tracker thread."""
+on the tracker thread. The tracker is fed cv2's features, as the JAX
+package's tests see them."""
 import pytest
 import torch
 
+from orb_cv2 import cv2_detector
 from synthetic import cube_orbit_sequence
 
-from bundlesdf_tpu_torch.bundlesdf import BundleSdf
+from bundlesdf_tpu_torch import bundlesdf
+from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
 from bundlesdf_tpu_torch.config import (default_nerf_config,
                                         default_track_config)
 from bundlesdf_tpu_torch.nof import runner as runner_mod
 
 torch.set_num_threads(2)
+
+
+class BundleSdf(bundlesdf.BundleSdf):
+    """The port's orchestrator, fed cv2's features."""
+
+    def __init__(self, **kw):
+        super().__init__(matcher=OrbMatcher(device="cpu",
+                                            detector=cv2_detector), **kw)
 
 
 def _cfgs(tmp_path, sync_max_delay):

@@ -3,7 +3,8 @@ CPU: its three records carry the JAX bench's metric names, unit strings,
 `vs_baseline = value / 10` and keys; the device fields are left out on the
 CPU; the pipeline's device floor is computed from the device times it is
 given (the bench passes its own measured ones), not from constants; the
-tracking lines refuse to run without cv2 unless features are replayed.
+tracking lines detect live with the port's ORB, cv2 or not, unless
+features are replayed.
 
 Tolerances: `vs_baseline` and the floor are rounded as the records round
 them (2 and 4 decimals), so they are held to half a unit of that
@@ -131,10 +132,20 @@ def test_pipeline_record_and_floor():
 
 
 def test_without_cv2_the_tracking_lines_raise(monkeypatch):
+    """Without cv2 the tracking lines used to raise; they now get a matcher
+    that detects live with the port's ORB, and it detects a frame with cv2
+    blocked."""
+    from types import SimpleNamespace
+
+    from synthetic import cube_orbit_sequence
+
     monkeypatch.setitem(sys.modules, "cv2", None)
-    seq = {"id_strs": ["0000"]}
-    with pytest.raises(RuntimeError, match="orb_features"):
-        bench.orb_matcher(torch.device("cpu"), seq)
+    seq = cube_orbit_sequence(n_frames=1, H=60, W=80)
+    m = bench.orb_matcher(torch.device("cpu"), seq)
+    assert m.detector is None
+    uv, des = m.detect_features(SimpleNamespace(
+        color=seq["colors"][0], fg_mask=seq["masks"][0]))
+    assert len(uv) == len(des) > 100 and des.dtype == torch.uint8
 
 
 def test_replayed_features(tmp_path):

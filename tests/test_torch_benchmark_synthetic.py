@@ -11,7 +11,7 @@ against the JAX driver (the top-level `benchmark_synthetic.py`):
   occluder sequence, writes a `metrics.json` equal within 1e-6 to the JAX
   package's `benchmark_video`, `collect_frame_statuses` and post-recovery
   ADD applied to the same run folder (the JAX driver's scoring, lines
-  216-253 of its file, at stride 1).
+  216-253 of its file, at stride 1); the tracker is fed cv2's features.
 """
 import glob
 import json
@@ -23,12 +23,16 @@ import pytest
 import torch
 import yaml
 
+from orb_cv2 import cv2_detector
+
 import benchmark_synthetic as jax_driver
 from bundlesdf_tpu.datasets import YcbineoatReader as JaxReader
 from bundlesdf_tpu.eval.benchmark import benchmark_video as jax_benchmark_video
 from bundlesdf_tpu.eval.metrics import add_err as jax_add_err
 from bundlesdf_tpu.mesh import Mesh as JaxMesh
 from bundlesdf_tpu_torch import benchmark_synthetic as driver
+from bundlesdf_tpu_torch import bundlesdf as tbsdf
+from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
 
 torch.set_num_threads(2)
 
@@ -158,7 +162,10 @@ def jax_scoring(out_folder, seq, protocol):
 
 
 @pytest.mark.parametrize("protocol", ["easy", "occluder"])
-def test_driver_metrics_equal_jax_scoring(tmp_path, protocol):
+def test_driver_metrics_equal_jax_scoring(tmp_path, protocol, monkeypatch):
+    # the tracker sees cv2's features, as the JAX driver's does
+    monkeypatch.setattr(tbsdf, "OrbMatcher", lambda device: OrbMatcher(
+        device=device, detector=cv2_detector))
     out = str(tmp_path / protocol)
     ours = driver.main(["--out", out, "--n_frames", "8", "--H", "60",
                         "--W", "80", "--protocol", protocol, "--no_nerf",

@@ -3,8 +3,9 @@ PyTorch version (uniform rows, and runs of equal rows at the encoder's
 stride, with and without the `group` hint), the hash-grid gradient through
 it against PyTorch's own gather backward, the wrapper's input checks, and the tracker programs
 (depth chain into the pool, fused ORB match + lift + RANSAC, bundle
-adjustment) on the card against the same calls on the CPU, at small
-shapes. Every test needs a CUDA card and skips without one.
+adjustment) and the port's ORB detector (`matcher/orb.py`, with a mask,
+through the matcher's stream) on the card against the same calls on the
+CPU, at small shapes. Every test needs a CUDA card and skips without one.
 
 This file imports no jax, so it also runs where jax is not installed:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -294,3 +295,30 @@ def test_ransac_and_ba_card_vs_cpu(cuda_device):
     assert (pg[:, :3, 3] - pc[:, :3, 3]).abs().max() <= 1e-4
     assert ((pg[:, :3, :3] - pc[:, :3, :3]).norm(dim=(1, 2))
             / np.sqrt(2)).max() <= 1e-4
+
+
+def test_orb_card_equals_cpu(cuda_device):
+    """The detector on the card gives the CPU's keypoints, angles,
+    responses and descriptors exactly, directly and through the matcher's
+    per-frame cache (its own stream)."""
+    from types import SimpleNamespace
+
+    from bundlesdf_tpu_torch.matcher import orb
+    from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
+    rng = np.random.default_rng(0)
+    color = np.full((240, 320, 3), 90, np.uint8)
+    color[30:210, 50:280] = rng.integers(0, 256, (180, 230, 3), np.uint8)
+    mask = np.zeros((240, 320), np.uint8)
+    mask[30:210, 50:280] = 1
+    gray = orb.rgb_to_gray(torch.from_numpy(color))
+    cpu = orb.detect_and_compute(gray, torch.from_numpy(mask))
+    card = orb.detect_and_compute(gray.to(cuda_device),
+                                  torch.from_numpy(mask).to(cuda_device))
+    assert len(cpu["pt"]) > 500
+    for k in cpu:
+        assert torch.equal(card[k].cpu(), cpu[k]), k
+    fr = SimpleNamespace(id=0, color=color, fg_mask=mask)
+    want = OrbMatcher(device="cpu")._frame_feats(fr)
+    got = OrbMatcher(device=cuda_device)._frame_feats(fr)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)

@@ -10,6 +10,7 @@ from bundlesdf_tpu_torch import resolve_device
 from bundlesdf_tpu_torch.bundlesdf import BundleSdf
 from bundlesdf_tpu_torch.config import default_nerf_config, default_track_config
 from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
+from bundlesdf_tpu_torch.matcher.gt import GtMatcher
 from bundlesdf_tpu_torch.nof.runner import NofRunner
 from bundlesdf_tpu_torch.tracker.bundler import Bundler
 from bundlesdf_tpu_torch.tracker.frame import Frame
@@ -42,6 +43,7 @@ CONSTRUCTORS = {
     "FramePool": lambda tmp, **kw: FramePool(8, 8, cap=2, **kw),
     "Frame": lambda tmp, **kw: _frame(**kw),
     "OrbMatcher": lambda tmp, **kw: OrbMatcher(**kw),
+    "GtMatcher": lambda tmp, **kw: GtMatcher({}, **kw),
 }
 
 
@@ -54,7 +56,7 @@ def test_default_device_is_the_card(no_card, tmp_path, name):
 
 
 @pytest.mark.parametrize("name", ["BundleSdf", "Bundler", "FramePool",
-                                  "Frame", "OrbMatcher"])
+                                  "Frame", "OrbMatcher", "GtMatcher"])
 def test_cpu_on_request(no_card, tmp_path, name):
     assert CONSTRUCTORS[name](tmp_path, device="cpu").device == torch.device("cpu")
 

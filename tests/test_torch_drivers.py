@@ -15,6 +15,7 @@ import yaml
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from orb_cv2 import cv2_detector
 from synthetic import cube_orbit_sequence
 
 import run_custom as j_run
@@ -22,6 +23,7 @@ from bundlesdf_tpu.datasets import YcbineoatReader as JReader
 from bundlesdf_tpu_torch import run_custom as t_run
 from bundlesdf_tpu_torch.config import dump_config, load_yaml
 from bundlesdf_tpu_torch.datasets import YcbineoatReader
+from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
 from bundlesdf_tpu_torch.mesh import Mesh
 from bundlesdf_tpu_torch.utils.png import read_png
 
@@ -113,7 +115,10 @@ def test_run_one_video_feeds_the_tracker_as_jax(tmp_path, monkeypatch):
         monkeypatch.setattr(mod, "run_one_video_global_nerf",
                             lambda **kw: calls.append(("refine",
                                                        kw["refine_overrides"])))
-        mod.run_one_video(video, str(tmp_path / name), stride=1,
+        # the port's tracker would see cv2's features, as JAX's does
+        extra = ({"matcher": OrbMatcher(device="cpu", detector=cv2_detector)}
+                 if name == "port" else {})
+        mod.run_one_video(video, str(tmp_path / name), stride=1, **extra,
                           online_overrides={"n_step": 7},
                           refine_overrides={"n_step": 3},
                           track_overrides={"bundle.window_size": 4})

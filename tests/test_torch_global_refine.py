@@ -25,6 +25,7 @@ import pytest
 import torch
 import yaml
 
+from orb_cv2 import cv2_detector
 from synthetic import cube_orbit_sequence
 
 import bundlesdf_tpu.bundlesdf as jbsdf
@@ -33,6 +34,7 @@ import bundlesdf_tpu_torch.bundlesdf as tbsdf
 import bundlesdf_tpu_torch.native as tnat
 from bundlesdf_tpu.config import default_nerf_config, default_track_config
 from bundlesdf_tpu_torch.config import load_yaml
+from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
 from bundlesdf_tpu_torch.mesh import Mesh
 from bundlesdf_tpu_torch.mesh.marching import marching_tetrahedra
 from bundlesdf_tpu_torch.mesh.render import rasterize
@@ -79,12 +81,14 @@ def jax_online(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def port_online(tmp_path_factory):
-    """The same run through the port on the CPU."""
+    """The same run through the port on the CPU, fed cv2's features."""
     tmp = str(tmp_path_factory.mktemp("port_online"))
     seq = _seq()
     tracker = tbsdf.BundleSdf(cfg_track=_track_cfg(tmp),
                               cfg_nerf=default_nerf_config(),
-                              start_nerf_keyframes=99, device="cpu")
+                              start_nerf_keyframes=99, device="cpu",
+                              matcher=OrbMatcher(device="cpu",
+                                                 detector=cv2_detector))
     for i in range(N_FRAMES):
         tracker.run(seq["colors"][i], seq["depths"][i].copy(), seq["K"],
                     seq["id_strs"][i], mask=seq["masks"][i])

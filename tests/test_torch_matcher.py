@@ -1,9 +1,10 @@
 """Port parity for the matchers: `orb_match_core` (batched mutual ratio
 test over hamming distances) against the JAX package on integer inputs
 with ties and with fewer than 2 features — best index, accept mask and
-distance identical — then `GtMatcher` on a tiny sequence, the port's ORB
-host detection against the JAX matcher's, and the ORB fixture the GPU
-smoke run replays against a fresh detection."""
+distance identical — then `GtMatcher` on a tiny sequence and the matcher's
+per-frame cache against the JAX matcher's, both fed cv2's features (the
+port's own detector is held against cv2 in test_torch_orb.py), and the ORB
+fixture the GPU smoke run replays against a fresh cv2 detection."""
 import os
 from types import SimpleNamespace
 
@@ -67,7 +68,8 @@ def _port_frames(seq, cfg):
 
 
 def test_gt_matcher_matches_jax():
-    pytest.importorskip("cv2", reason="GtMatcher detects with cv2")
+    from orb_cv2 import cv2_keypoints
+
     from bundlesdf_tpu.matcher.gt import GtMatcher as JaxGt
     from bundlesdf_tpu.tracker.frame import Frame as JaxFrame
     from bundlesdf_tpu_torch.matcher.gt import GtMatcher
@@ -80,35 +82,40 @@ def test_gt_matcher_matches_jax():
     ft = _port_frames(seq, default_track_config())
     pairs = [(1, 0), (2, 0), (2, 1)]
     oj = JaxGt(gt).match_frames([(fj[a], fj[b]) for a, b in pairs])
-    ot = GtMatcher(gt).match_frames([(ft[a], ft[b]) for a, b in pairs])
+    ot = GtMatcher(gt, device="cpu",
+                   detector=lambda f: cv2_keypoints(f.color)).match_frames(
+        [(ft[a], ft[b]) for a, b in pairs])
     for a, b in zip(oj, ot):
         assert len(a) >= 10
         np.testing.assert_array_equal(a, b)
 
 
 def test_orb_detection_matches_jax():
-    pytest.importorskip("cv2", reason="host ORB detection uses cv2")
+    from orb_cv2 import detect_cv2
+
     from bundlesdf_tpu.matcher.classical import OrbMatcher as JaxOrb
 
     seq = cube_orbit_sequence(n_frames=2, H=120, W=160, full_angle=0.3)
     fr = SimpleNamespace(id=0, color=seq["colors"][1],
                          fg_mask=seq["masks"][1].astype(np.uint8))
     uv_j, des_j, bits_j, uvp_j = JaxOrb(feat_cap=256)._frame_feats(fr)
-    orb = OrbMatcher(feat_cap=256, device="cpu")
-    uv_t, des_t, bits_t, uvp_t = orb._frame_feats(fr)
+    orb = OrbMatcher(feat_cap=256, device="cpu",
+                     detector=lambda f: detect_cv2(f.color, f.fg_mask,
+                                                   feat_cap=256))
+    uv_t, des_t, bits_t, uvp_t = [t.numpy() for t in orb._frame_feats(fr)]
     np.testing.assert_array_equal(uv_t, np.asarray(uv_j, np.float32))
     np.testing.assert_array_equal(des_t, des_j)
-    np.testing.assert_array_equal(bits_t.numpy(), np.asarray(bits_j))
-    np.testing.assert_array_equal(uvp_t.numpy(), np.asarray(uvp_j))
+    np.testing.assert_array_equal(bits_t, np.asarray(bits_j))
+    np.testing.assert_array_equal(uvp_t, np.asarray(uvp_j))
     # the detector hook replaces detection and nothing else
     hooked = OrbMatcher(feat_cap=256, device="cpu",
                         detector=lambda f: (uv_t, des_t))
     np.testing.assert_array_equal(hooked._frame_feats(fr)[2].numpy(),
-                                  bits_t.numpy())
+                                  bits_t)
 
 
 def test_orb_fixture_is_current(tmp_path):
-    """Each committed ORB fixture equals a fresh detection of its first two
+    """Each committed ORB fixture equals a fresh cv2 detection of its first two
     frames (regenerate with tests/fixtures/gen_tracker_orb.py --sequence
     orbit30|bench70|easy120): the 30-frame orbit of the GPU smoke run, the
     70 frames of the bench's tracking lines, and the 120-frame easy run of

@@ -1,6 +1,8 @@
 """The port must run where jax, cv2, PyYAML and sklearn are not installed
 (the GPU machine has none of them): every module of `bundlesdf_tpu_torch`,
-and chip_smoke.py, import with all four blocked."""
+and chip_smoke.py, import with all four blocked, and the port's ORB
+(`matcher/orb.py`, through the matcher's `detect_features`) detects a
+frame with them blocked; no source of the port imports jax or cv2."""
 import os
 import subprocess
 import sys
@@ -21,6 +23,18 @@ for name in names:
 assert {"bundlesdf_tpu_torch.utils.profiling", "bundlesdf_tpu_torch.bench",
         "bundlesdf_tpu_torch.benchmark_synthetic"} <= set(names)
 import chip_smoke
+# ORB detection with cv2 blocked: a textured square on a flat background
+import numpy as np
+from types import SimpleNamespace
+from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
+rng = np.random.default_rng(0)
+color = np.full((240, 320, 3), 90, np.uint8)
+color[40:200, 60:260] = rng.integers(0, 256, (160, 200, 3), dtype=np.uint8)
+mask = np.zeros((240, 320), np.uint8)
+mask[40:200, 60:260] = 1
+uv, des = OrbMatcher(device="cpu").detect_features(
+    SimpleNamespace(color=color, fg_mask=mask))
+assert len(uv) == len(des) > 500, len(uv)
 assert not any(k in ("jax", "cv2", "yaml", "sklearn")
                or k.startswith(("jax.", "bundlesdf_tpu.", "sklearn."))
                for k in sys.modules if sys.modules[k] is not None)
@@ -45,3 +59,4 @@ def test_no_jax_import_in_sources():
                 with open(os.path.join(dirpath, f)) as fh:
                     src = fh.read()
                 assert "import jax" not in src and "from jax" not in src, f
+                assert "import cv2" not in src and "from cv2" not in src, f

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from orb_cv2 import cv2_detector
 from synthetic import cube_orbit_sequence
 
 from bundlesdf_tpu import bundlesdf as jbsdf
@@ -27,6 +28,7 @@ from bundlesdf_tpu.nof import runner as jrunner
 from bundlesdf_tpu_torch import bundlesdf as tbsdf
 from bundlesdf_tpu_torch.config import (default_nerf_config,
                                         default_track_config)
+from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
 from bundlesdf_tpu_torch.nof import runner as trunner
 
 torch.set_num_threads(2)
@@ -55,6 +57,10 @@ def _stacks(tmp_path_factory, nerf=None, **kw):
     out = {}
     for name, mod, extra in (("jax", jbsdf, {}),
                              ("torch", tbsdf, {"device": "cpu"})):
+        if name == "torch":
+            # both stacks see cv2's features
+            extra["matcher"] = OrbMatcher(device="cpu",
+                                          detector=cv2_detector)
         cfg_t, cfg_n = _cfgs(tmp_path_factory.mktemp(name))
         cfg_n.update(nerf or {})
         out[name] = mod.BundleSdf(cfg_track=cfg_t, cfg_nerf=cfg_n, **kw,

@@ -4,17 +4,20 @@ frames of the synthetic orbit at 120x160, NOF off, fused matcher in both).
 RANSAC draws differ (threefry vs Philox), so the stacks are held to each
 other per frame within 2 mm and 1 deg, to the ground truth as
 test_pipeline.py holds JAX (< 5 mm mean), and to the same keyframes, FAIL
-statuses and artifact files."""
+statuses and artifact files. Both stacks see cv2's features (the port's
+own detector is held against cv2 in test_torch_orb.py)."""
 import numpy as np
 import pytest
 import torch
 
+from orb_cv2 import cv2_detector
 from synthetic import cube_orbit_sequence
 
 from bundlesdf_tpu.bundlesdf import BundleSdf as JaxBundleSdf
 from bundlesdf_tpu.config import default_nerf_config
 from bundlesdf_tpu_torch.bundlesdf import BundleSdf, resize_nearest
 from bundlesdf_tpu_torch.config import default_track_config
+from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
 
 torch.set_num_threads(2)
 N = 8
@@ -39,6 +42,9 @@ def runs(tmp_path_factory):
     for name, cls, kw in (("jax", JaxBundleSdf,
                            {"cfg_nerf": default_nerf_config()}),
                           ("torch", BundleSdf, {"device": "cpu"})):
+        if name == "torch":
+            # both stacks see cv2's features
+            kw["matcher"] = OrbMatcher(device="cpu", detector=cv2_detector)
         tmp = tmp_path_factory.mktemp(name)
         t = cls(cfg_track=_cfg(tmp), start_nerf_keyframes=10 ** 9, **kw)
         frames = [t.run(seq["colors"][i], seq["depths"][i].copy(), seq["K"],

@@ -3,17 +3,19 @@
 `image_down_scale`, `bundle.w_dense_color`): each switched on in both the
 JAX package's and the port's tracker-only `BundleSdf.run`, 5 frames of the
 synthetic orbit at 120x160, poses held to each other within 2 mm / 1 deg
-and to the ground truth (< 5 mm mean)."""
+and to the ground truth (< 5 mm mean). Both stacks see cv2's features."""
 import numpy as np
 import pytest
 import torch
 
+from orb_cv2 import cv2_detector
 from synthetic import cube_orbit_sequence
 
 from bundlesdf_tpu.bundlesdf import BundleSdf as JaxBundleSdf
 from bundlesdf_tpu.config import default_nerf_config
 from bundlesdf_tpu_torch.bundlesdf import BundleSdf
 from bundlesdf_tpu_torch.config import default_track_config
+from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
 
 torch.set_num_threads(2)
 
@@ -36,6 +38,8 @@ def test_off_by_default_branches(tmp_path, branch):
     for name, cls, kw in (("jax", JaxBundleSdf,
                            {"cfg_nerf": default_nerf_config()}),
                           ("torch", BundleSdf, {"device": "cpu"})):
+        if name == "torch":
+            kw["matcher"] = OrbMatcher(device="cpu", detector=cv2_detector)
         cfg = _cfg(tmp_path / name)
         if branch == "denoise_cloud":
             cfg["depth_processing"]["denoise_cloud"] = True
