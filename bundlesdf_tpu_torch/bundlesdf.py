@@ -41,6 +41,9 @@ from bundlesdf_tpu_torch.config import (default_nerf_config,
                                         default_track_config, dump_config,
                                         dump_yaml, load_config, load_yaml)
 from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
+from bundlesdf_tpu_torch.matcher.loftr import LoftrConfig, LoftrMatcher
+from bundlesdf_tpu_torch.matcher.pairing import (map_matches_back,
+                                                 process_image_pairs)
 from bundlesdf_tpu_torch.mesh.texture import bake_texture
 from bundlesdf_tpu_torch.nof.models import pose_array_matrices
 from bundlesdf_tpu_torch.nof.runner import NofRunner, preprocess_frame_data
@@ -72,7 +75,7 @@ class BundleSdf:
         if use_gui:
             raise NotImplementedError("the GUI is not ported to "
                                       "bundlesdf_tpu_torch (ROADMAP.md queue "
-                                      "1, item 7)")
+                                      "1, item 3)")
         self.device = resolve_device(device)
         self.start_nerf_keyframes = start_nerf_keyframes
         self.debug_dir = self.cfg_track["debug_dir"]
@@ -81,12 +84,18 @@ class BundleSdf:
         if matcher is not None:
             self.matcher = matcher
         else:
+            # LoFTR drives the pipeline when a checkpoint is configured
+            # (ref loftr_wrapper.py + readme.md:30-31); ORB is the
+            # weights-free fallback
             ckpt = self.cfg_track.get("loftr_ckpt", "")
             if ckpt and os.path.exists(ckpt):
-                raise NotImplementedError(
-                    "loftr_ckpt is set: the LoFTR matcher is not ported to "
-                    "bundlesdf_tpu_torch (ROADMAP.md queue 1, item 5)")
-            self.matcher = OrbMatcher(device=self.device)
+                # bf16 inference by default, as the reference wrapper runs
+                # the net under autocast (loftr_wrapper.py:43-56)
+                self.matcher = LoftrMatcher(
+                    ckpt_path=ckpt, device=self.device, cfg=LoftrConfig(
+                        amp=bool(self.cfg_track.get("loftr_amp", True))))
+            else:
+                self.matcher = OrbMatcher(device=self.device)
         self.bundler = Bundler(self.cfg_track, self.matcher,
                                device=self.device)
         fc_cfg = self.cfg_track["feature_corres"]
@@ -209,12 +218,24 @@ class BundleSdf:
                 logging.info(
                     f"frame {b.new_frame.id_str} FAIL: no matching")
             return
-        if not hasattr(self.matcher, "match_frames"):
-            raise NotImplementedError(
-                "matchers without match_frames (the LoFTR predict path with "
-                "its pair canonicalization) are not ported to "
-                "bundlesdf_tpu_torch (ROADMAP.md queue 1, item 5)")
-        raw = self.matcher.match_frames(frame_pairs)
+        if hasattr(self.matcher, "match_frames"):
+            # frame-keyed path (ORB): descriptors cached per frame, matched
+            # at full res, no per-pair warp
+            raw = self.matcher.match_frames(frame_pairs)
+        else:
+            # canonicalize each pair: rotate B into A's in-plane
+            # orientation, crop the ROIs, resize to a shared square (ref
+            # getProcessedImagePairs -> processImagePair
+            # FeatureManager.cpp:126-257), all pairs in one warp on the
+            # matcher's device
+            out_size = int(self.cfg_track["feature_corres"].get("resize",
+                                                                400))
+            cropsA, cropsB, tfs = process_image_pairs(
+                frame_pairs, out_size,
+                getattr(self.matcher, "device", self.device))
+            raw = self.matcher.predict(cropsA, cropsB)
+            raw = [map_matches_back(uv, tfA, tfB)
+                   for uv, (tfA, tfB) in zip(raw, tfs)]
 
         if use_map_points:
             merged = []

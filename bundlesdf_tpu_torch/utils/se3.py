@@ -13,6 +13,8 @@ calls on its TPU stack. `kabsch_np` is the JAX package's numpy twin
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -159,6 +161,34 @@ def rot_geodesic_ignore_cam_z_np(R1, R2):
     if n < 1e-6:  # pure cam-Z roll -> distance 0
         return 0.0
     return float(angle)
+
+
+def so3_log_np(R):
+    """NumPy twin of so3_log for one (3,3) rotation, in float64 and in
+    cv2.Rodrigues's arithmetic: R projected onto SO(3) by its SVD, then
+    w * theta / (2 s) with s = |w| / 2 (no epsilon); where s < 1e-5 the
+    result is 0 (theta near 0) or the axis from the diagonal, signed by
+    the off-diagonal entries (theta near pi)."""
+    U, _, Vt = np.linalg.svd(np.asarray(R, np.float64))
+    R = U @ Vt
+    r = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    s = math.sqrt((r[0] * r[0] + r[1] * r[1] + r[2] * r[2]) * 0.25)
+    c = min(max((R[0, 0] + R[1, 1] + R[2, 2] - 1) * 0.5, -1.0), 1.0)
+    theta = math.acos(c)
+    if s >= 1e-5:
+        return r * (1 / (2 * s) * theta)
+    if c > 0:
+        return np.zeros(3)
+    rx = math.sqrt(max((R[0, 0] + 1) * 0.5, 0.0))
+    ry = math.sqrt(max((R[1, 1] + 1) * 0.5, 0.0)) * (-1.0 if R[0, 1] < 0
+                                                     else 1.0)
+    rz = math.sqrt(max((R[2, 2] + 1) * 0.5, 0.0)) * (-1.0 if R[0, 2] < 0
+                                                     else 1.0)
+    if (abs(rx) < abs(ry) and abs(rx) < abs(rz)
+            and (R[1, 2] > 0) != (ry * rz > 0)):
+        rz = -rz
+    r = np.array([rx, ry, rz])
+    return r * (theta / np.linalg.norm(r))
 
 
 def kabsch_np(src, dst, weights=None):

@@ -78,9 +78,18 @@ Phases, one printed line each (or a few), any failure exits non-zero:
      way, its tracked frames/s beside phase 12's; then
      `run_custom.draw_pose` on three frames of its output and a two-frame
      `run_one_video(use_segmenter=True)`; fails if cv2 was imported;
- 15. a JSON line of per-kernel results, then the final status line.
+ 15. LoFTR (`matcher/pairing.py`, `matcher/loftr.py`, no hand kernel):
+     the pairing warp card = CPU exactly and the full-width net
+     (LoftrConfig(), seeded, match_thr 0) card = CPU at f32 on 4 pairs of
+     the orbit at 400x400, bf16 against f32 on the card;
+     `bench_loftr`'s four `loftr_pairs_per_sec` lines; then the tracker
+     through LoFTR: run_custom's track config over the 30 frames, NOF off
+     (frames/s, pairs a frame, device ms of the warp and the net, peak
+     memory, FAILs, finite poses);
+ 16. a JSON line of per-kernel results, then the final status line.
 --profile adds torch.profiler tables of 5 NOF steps, of 5 tracked frames,
-of 20 refine steps and of the online loop's first NOF batch. Needs a CUDA
+of 20 refine steps, of the online loop's first NOF batch and of one LoFTR
+predict of 8 pairs (f32 and bf16). Needs a CUDA
 card, nvcc and g++ (the native library); refuses to run on the CPU.
 """
 from __future__ import annotations
@@ -1695,6 +1704,344 @@ def phase_live(replay):
             "seconds": secs}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the LoFTR matcher path
+LOFTR_PAIRS = ((5, 0), (12, 5), (20, 12), (29, 20))   # (A, B) frame ids
+LOFTR_SIZE = 400          # feature_corres.resize of run_custom's config
+LOFTR_CONF_TOL = 1e-4     # card vs CPU coarse confidence at f32
+LOFTR_UV1_TOL = 0.05      # card vs CPU fine match, px
+LOFTR_SET_SHARE = 0.99    # card vs CPU: matches in both sets
+LOFTR_GAIN = 4.0          # coarse feature gain of the seeded nets (_peaked)
+
+
+def _loftr_frames(seq, ids):
+    """Tracker frames as the pairing reads them: color, mask, size and the
+    ground-truth cam-in-object pose."""
+    from types import SimpleNamespace
+    H, W = seq["colors"][0].shape[:2]
+    return {i: SimpleNamespace(id=i, color=seq["colors"][i], H=H, W=W,
+                               fg_mask=seq["masks"][i],
+                               pose_in_model=seq["cam_in_obs"][i])
+            for i in ids}
+
+
+def _matches(out, k):
+    keep = out["conf"][k] > 0
+    return {tuple(u): (v, c) for u, v, c in zip(
+        out["uv0"][k][keep].tolist(), out["uv1"][k][keep].cpu().numpy(),
+        out["conf"][k][keep].tolist())}
+
+
+def _compare_matches(ref, got):
+    """(shared keys, max |uv1| and |conf| differences on them)."""
+    shared = set(ref) & set(got)
+    du = max([float(np.abs(ref[k][0] - got[k][0]).max()) for k in shared]
+             or [0.0])
+    dc = max([abs(ref[k][1] - got[k][1]) for k in shared] or [0.0])
+    return shared, du, dc
+
+
+def _margin(conf, key, wc):
+    """The mutual-nearest-neighbour margin of the match at coarse cell
+    @key: the smaller of its row's and its best column's gaps between the
+    top two entries of the coarse confidence @conf (L,S)."""
+    i = int(key[1]) // 8 * wc + int(key[0]) // 8
+    row = conf[i]
+    col = conf[:, int(row.argmax())]
+    return min(float(row.topk(2).values.diff().abs()),
+               float(col.topk(2).values.diff().abs()))
+
+
+def _peaked(net, gain=LOFTR_GAIN):
+    """@net with its coarse output conv and every coarse layer's second
+    LayerNorm weight scaled by @gain, in place. With the unit gains of the
+    seeded init the coarse features are nearly flat under the dual
+    softmax: a few mutual matches a 400x400 pair of the orbit, most of
+    them on ties. At 4 the similarity peaks as a trained net's does (a
+    crop shifted by 8 px is matched back at its shift on most of several
+    hundred matches), so the tracker gets a matcher's load of matches.
+    The net's compute does not change."""
+    with torch.no_grad():
+        net.backbone.layer3_outconv.weight.mul_(gain)
+        for layer in net.loftr_coarse.layers:
+            layer.norm2.weight.mul_(gain)
+    return net
+
+
+def _amp_check(f32, bf16, k, wc):
+    """bf16 against f32 outputs of pair @k: matches, the coarse confidence
+    difference and correlation, and the f32 matches whose margin exceeds
+    twice that difference ("decided") that bf16 finds too."""
+    ref, half = _matches(f32, k), _matches(bf16, k)
+    shared, du_all, dc = _compare_matches(ref, half)
+    c32 = f32["conf_matrix"][k].flatten().float()
+    c16 = bf16["conf_matrix"][k].flatten().float()
+    err = float((c32 - c16).abs().max())
+    conf32 = f32["conf_matrix"][k]
+    decided = [q for q in ref if _margin(conf32, q, wc) > 2 * err]
+    found = set(decided) & shared
+    du = _compare_matches({q: ref[q] for q in found},
+                          {q: half[q] for q in found})[1]
+    return dict(matches=len(ref), bf16_matches=len(half), shared=len(shared),
+                conf_matrix_err=err,
+                corr=float(torch.corrcoef(torch.stack([c32, c16]))[0, 1]),
+                decided=len(decided), decided_found=len(found), uv1_err=du,
+                uv1_err_shared=du_all, conf_err=dc)
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_loftr_vs_cpu(seq, size=LOFTR_SIZE, device="cuda"):
+    """The pairing warp and the full-width net (LoftrConfig(), seeded
+    weights, match_thr 0) on 4 pairs of the orbit at 400x400.
+
+    Card = CPU: the warp exactly; the net at f32, both as seeded and with
+    `_peaked`'s gain (the tracker's net, a hundred matches a pair): coarse
+    confidence within 1e-3 of its largest entry (and within 1e-4 for the
+    seeded net, whose entries are ~1e-5), >= 99 % of the matches in both
+    sets unless every difference sits on a mutual-NN tie, uv1 within 0.05
+    px on the shared ones.
+
+    bf16 against f32, both on the card, on the seeded net: the amp
+    tolerance of tests/test_loftr.py:234-281 (coarse confidence within
+    0.05, correlation above 0.99; uv1 within 1 px, conf within 0.05), on
+    the matches whose margin exceeds twice the largest bf16 confidence
+    difference, all of which both must find: its coarse confidence is
+    nearly flat, so most of its few mutual matches sit on margins that
+    bf16 rounding crosses. The peaked net's bf16 numbers are printed,
+    not gated: its gain amplifies the rounding through the transformer."""
+    from bundlesdf_tpu_torch.matcher.loftr import LoftrConfig, init_loftr
+    from bundlesdf_tpu_torch.matcher.pairing import process_image_pairs
+    t0 = time.perf_counter()
+    frames = _loftr_frames(seq, {i for p in LOFTR_PAIRS for i in p})
+    pairs = [(frames[a], frames[b]) for a, b in LOFTR_PAIRS]
+    gA, gB, _ = process_image_pairs(pairs, size, device)
+    hA, hB, _ = process_image_pairs(pairs, size, "cpu")
+    if not (torch.equal(gA.cpu(), hA) and torch.equal(gB.cpu(), hB)):
+        n = int((gA.cpu() != hA).sum() + (gB.cpu() != hB).sum())
+        raise AssertionError(f"loftr: warp card != CPU on {n} pixels")
+    cfg = LoftrConfig(match_thr=0.0)
+    a, b = hA.float() / 255.0, hB.float() / 255.0
+    out = {}
+    with torch.inference_mode():
+        for peaked in (False, True):
+            net = init_loftr(cfg, seed=0)
+            out["cpu", peaked] = (_peaked(net) if peaked else net)(
+                a, b, debug=True)
+        a, b = a.to(device), b.to(device)
+        for amp in (False, True):
+            for peaked in (False, True):
+                net = init_loftr(replace(cfg, amp=amp), seed=0)
+                net = (_peaked(net) if peaked else net).to(device)
+                out[amp, peaked] = net(a, b, debug=True)
+    wc = size // 8
+    res = {"warp_equal": True, "nets": {}}
+    for peaked in (False, True):
+        conf_cpu = out["cpu", peaked]["conf_matrix"]
+        conf_card = out[False, peaked]["conf_matrix"].cpu()
+        err = float((conf_card - conf_cpu).abs().max())
+        res["nets"]["peaked" if peaked else "seeded"] = r = {
+            "conf_err": err, "conf_rel_err": err / float(conf_cpu.max()),
+            "pairs": []}
+        for k in range(len(pairs)):
+            ref = _matches(out["cpu", peaked], k)
+            got = _matches(out[False, peaked], k)
+            shared, du, dc = _compare_matches(ref, got)
+            tie = 1e-5 * float(conf_card[k].max())
+            ties = [q for q in set(ref) ^ set(got)
+                    if _margin(conf_card[k], q, wc) <= tie]
+            r["pairs"].append(dict(
+                matches=len(ref), card_matches=len(got),
+                share=len(shared) / max(len(set(ref) | set(got)), 1),
+                unshared=len(set(ref) ^ set(got)), unshared_on_tie=len(ties),
+                uv1_err=du, conf_err=dc,
+                amp=_amp_check(out[False, peaked], out[True, peaked], k, wc)))
+    secs = time.perf_counter() - t0
+
+    def amp_text(p):
+        return (f"{p['matches']} / {p['bf16_matches']} matches, "
+                f"{p['shared']} shared, conf matrix err "
+                f"{p['conf_matrix_err']:.3g} corr {p['corr']:.4f}, "
+                f"{p['decided_found']} of {p['decided']} decided matches "
+                f"found, uv1 err {p['uv1_err']:.3g} px on them "
+                f"({p['uv1_err_shared']:.3g} on all shared)")
+
+    text = []
+    for name, r in res["nets"].items():
+        text.append(
+            f"{name} net, f32: coarse confidence max err {r['conf_err']:.3g}"
+            f", {r['conf_rel_err']:.3g} of its largest entry; per pair "
+            + "; ".join(f"{p['matches']} matches (card {p['card_matches']})"
+                        f", {100 * p['share']:.2f} % in both "
+                        f"({p['unshared']} not, {p['unshared_on_tie']} on a "
+                        f"tie), uv1 err {p['uv1_err']:.3g} px, conf err "
+                        f"{p['conf_err']:.3g} | bf16 vs f32 on the card"
+                        f"{'' if name == 'seeded' else ' (not gated)'}: "
+                        f"{amp_text(p['amp'])}" for p in r["pairs"]))
+    print(f"loftr card vs CPU: {len(pairs)} pairs of the 480x640 orbit "
+          f"{LOFTR_PAIRS} at {size}x{size}, LoftrConfig(), match_thr 0: "
+          f"warp card = CPU on every pixel; " + " || ".join(text)
+          + f"; {secs:.1f} s", flush=True)
+    for name, r in res["nets"].items():
+        if r["conf_rel_err"] > 1e-3 or (name == "seeded"
+                                        and r["conf_err"] > LOFTR_CONF_TOL):
+            raise AssertionError(f"loftr: {name} coarse confidence card vs "
+                                 f"CPU {r['conf_err']}")
+        for p in r["pairs"]:
+            if (p["matches"] == 0 or p["uv1_err"] > LOFTR_UV1_TOL
+                    or (p["share"] < LOFTR_SET_SHARE
+                        and p["unshared_on_tie"] < p["unshared"])):
+                raise AssertionError(f"loftr: {name} card vs CPU {p}")
+            q = p["amp"]
+            if name == "seeded" and (
+                    q["conf_matrix_err"] >= 0.05 or q["corr"] <= 0.99
+                    or q["decided_found"] < q["decided"]
+                    or q["uv1_err"] >= 1.0 or q["conf_err"] >= 0.05):
+                raise AssertionError(f"loftr: bf16 vs f32 on the card {q}")
+    return res
+
+
+def phase_loftr_bench():
+    """bench_loftr's four lines (amp off / on x batch 8 / 64)."""
+    from bundlesdf_tpu_torch import bench_loftr
+    t0 = time.perf_counter()
+    recs = bench_loftr.main([])
+    print(f"loftr bench: {time.perf_counter() - t0:.1f} s", flush=True)
+    return recs
+
+
+def phase_loftr_profile(batch=8):
+    """torch.profiler tables of one `predict` of @batch 400x400 pairs,
+    f32 and amp (seeded LoftrConfig()), sorted by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bundlesdf_tpu_torch.matcher.loftr import LoftrConfig, LoftrMatcher
+    rng = np.random.default_rng(0)
+    imgs = rng.uniform(0, 255, (batch + 1, LOFTR_SIZE, LOFTR_SIZE)).astype(
+        np.uint8)
+    for amp in (False, True):
+        m = LoftrMatcher(cfg=LoftrConfig(amp=amp), seed=0)
+        m.predict(list(imgs[:batch]), list(imgs[1:]))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            m.predict(list(imgs[:batch]), list(imgs[1:]))
+            torch.cuda.synchronize()
+        table = prof.key_averages().table(sort_by="cuda_time_total",
+                                          row_limit=25)
+        print(f"profile of one LoFTR predict, {batch} pairs 400x400, amp "
+              f"{amp}, {torch.cuda.get_device_name(0)}\n{table}", flush=True)
+        del m
+        torch.cuda.empty_cache()
+
+
+def phase_loftr_tracker(seq, n_frames=N_TRACK, traced=range(20, 25),
+                        size=LOFTR_SIZE, device="cuda"):
+    """The tracker through LoFTR: BundleSdf with run_custom's track
+    config (SPDLOG 0, NOF off) and a full-width seeded LoftrMatcher (bf16,
+    `_peaked`'s gain, match_thr 0: each pair carries up to 1,024 mutual
+    matches into map points, the lift and RANSAC) over the 480x640 orbit: frames/s over the
+    untraced frames 5-19, pairs per frame, the device ms of the pairing
+    warp and of the net per frame (profiler union over frames 20-24),
+    peak memory, FAILs, one finite pose per frame."""
+    from bundlesdf_tpu_torch import bundlesdf as bsdf
+    from bundlesdf_tpu_torch.matcher.loftr import LoftrConfig, LoftrMatcher
+    from bundlesdf_tpu_torch.run_custom import make_configs
+    from bundlesdf_tpu_torch.utils.profiling import (device_ms_by_range,
+                                                     device_trace,
+                                                     load_trace, trace_path)
+    t0 = time.perf_counter()
+    pairs_per_call = []
+    matcher = LoftrMatcher(cfg=LoftrConfig(match_thr=0.0, amp=True), seed=0,
+                           device=device)
+    _peaked(matcher.net)
+    predict, pairing = matcher.predict, bsdf.process_image_pairs
+
+    def ranged_predict(a, b):
+        pairs_per_call.append(len(a))
+        with torch.profiler.record_function("loftr:predict"):
+            return predict(a, b)
+
+    def ranged_pairing(*args, **kw):
+        with torch.profiler.record_function("loftr:pairing"):
+            return pairing(*args, **kw)
+
+    matcher.predict = ranged_predict
+    bsdf.process_image_pairs = ranged_pairing
+    tmp = tempfile.mkdtemp(prefix="bsdf_loftr_")
+    trace_dir = os.path.join(tmp, "trace")
+    try:
+        cfg, _ = make_configs(tmp, debug_level=0)
+        cfg["stage_timing"] = True
+        cfg["feature_corres"]["resize"] = size
+        _sync(device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t = bsdf.BundleSdf(cfg_track=cfg, start_nerf_keyframes=10 ** 9,
+                           matcher=matcher, device=device)
+        frames, calls_at = [], []
+        with contextlib.ExitStack() as trace:
+            for i in range(n_frames):
+                if i == 5:
+                    _sync(device)
+                    t5 = time.perf_counter()
+                if i == traced.start:
+                    _sync(device)
+                    dt = time.perf_counter() - t5
+                    trace.enter_context(device_trace(trace_dir, device))
+                calls_at.append(len(pairs_per_call))
+                frames.append(t.run(seq["colors"][i], seq["depths"][i].copy(),
+                                    seq["K"], seq["id_strs"][i],
+                                    mask=seq["masks"][i]))
+                if i == traced.stop - 1:
+                    trace.close()
+        t.on_finish()
+        _sync(device)
+        peak = (torch.cuda.max_memory_allocated()
+                if torch.device(device).type == "cuda" else 0)
+        by_range = device_ms_by_range(load_trace(trace_path(trace_dir)),
+                                      prefix="loftr:")
+    finally:
+        bsdf.process_image_pairs = pairing
+        shutil.rmtree(tmp, ignore_errors=True)
+    calls_at.append(len(pairs_per_call))
+    per_frame = [sum(pairs_per_call[calls_at[i]:calls_at[i + 1]])
+                 for i in range(n_frames)]
+    status = [f.status.name for f in frames]
+    poses = np.array([f.pose_in_model for f in frames])
+    stages = {}
+    for st in t.stage_stats[5:]:
+        for k, v in st.items():
+            stages.setdefault(k, []).append(v * 1e3)
+    med = {k: round(float(np.median(v)), 3) for k, v in sorted(stages.items())}
+    n = traced.start - 5
+    dev = {k: v / len(traced) for k, v in by_range.items() if k != "OUTSIDE"}
+    res = {"frames_per_s": n / dt, "ms_per_frame": 1e3 * dt / n,
+           "pairs_per_frame": float(np.mean(per_frame[1:])),
+           "pairs_by_frame": per_frame, "device_ms_per_frame": dev,
+           "stage_ms": med, "peak_gib": peak / 2 ** 30,
+           "fail": status.count("FAIL"),
+           "seconds": time.perf_counter() - t0}
+    print(f"loftr tracker: {n_frames} frames 480x640, run_custom track "
+          f"config (map_points, max_BA_frames 10, resize {size}), LoftrConfig"
+          f"(match_thr=0, amp) seeded, NOF off: frames 5-{traced.start - 1} "
+          f"{res['frames_per_s']:.3f} frames/s {res['ms_per_frame']:.3f} "
+          f"ms/frame; pairs a frame {res['pairs_per_frame']:.2f} "
+          f"({per_frame}); device ms a frame over frames {traced.start}-"
+          f"{traced.stop - 1}: {json.dumps({k: round(v, 3) for k, v in dev.items()})}; "
+          f"median stage ms {json.dumps(med)}; peak {res['peak_gib']:.3f} "
+          f"GiB; FAIL {res['fail']}; statuses {status}; "
+          f"{res['seconds']:.1f} s", flush=True)
+    if not np.isfinite(poses).all() or poses.shape != (n_frames, 4, 4):
+        raise AssertionError("loftr tracker: a pose is not finite")
+    if sum(pairs_per_call) == 0 or (torch.device(device).type == "cuda"
+                                    and "predict" not in dev):
+        raise AssertionError("loftr tracker: the predict branch never ran")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this smoke run "
@@ -1750,9 +2097,15 @@ def main():
     orb = phase_orb(seq, fx, tracked["ms_per_frame"])
     live = phase_live(protocol)
     print(f"phases 13-14: {time.perf_counter() - t13:.1f} s", flush=True)
+    t15 = time.perf_counter()
+    loftr = {"vs_cpu": phase_loftr_vs_cpu(seq), "bench": phase_loftr_bench(),
+             "tracker": phase_loftr_tracker(seq)}
+    if "--profile" in sys.argv[1:]:
+        phase_loftr_profile()
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
     print(json.dumps({"orb": orb, "live": {k: live[k] for k in (
         "ADD(cm)", "ADDS(cm)", "wall_s", "frames_per_s",
-        "replay_frames_per_s")}}), flush=True)
+        "replay_frames_per_s")}, "loftr": loftr}), flush=True)
     if "jax" in sys.modules or "cv2" in sys.modules:
         raise AssertionError("the port imported jax or cv2")
     # ms, plain_ms, library_ms and the bound: the rows of a real step

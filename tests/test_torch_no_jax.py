@@ -2,7 +2,9 @@
 (the GPU machine has none of them): every module of `bundlesdf_tpu_torch`,
 and chip_smoke.py, import with all four blocked, and the port's ORB
 (`matcher/orb.py`, through the matcher's `detect_features`) detects a
-frame with them blocked; no source of the port imports jax or cv2."""
+frame and its LoFTR path (`matcher/pairing.py`, `matcher/loftr.py`)
+canonicalizes and matches a pair with them blocked; no source of the port
+imports jax or cv2."""
 import os
 import subprocess
 import sys
@@ -35,6 +37,19 @@ mask[40:200, 60:260] = 1
 uv, des = OrbMatcher(device="cpu").detect_features(
     SimpleNamespace(color=color, fg_mask=mask))
 assert len(uv) == len(des) > 500, len(uv)
+# LoFTR with cv2 blocked: a pair canonicalized and matched by a tiny net
+assert {"bundlesdf_tpu_torch.matcher.loftr",
+        "bundlesdf_tpu_torch.matcher.pairing",
+        "bundlesdf_tpu_torch.bench_loftr"} <= set(names)
+from bundlesdf_tpu_torch.matcher.loftr import LoftrConfig, LoftrMatcher
+from bundlesdf_tpu_torch.matcher.pairing import mask_roi, process_image_pair
+pose = np.eye(4)
+cA, cB, tfA, tfB = process_image_pair(color, color, mask_roi(mask),
+                                      mask_roi(mask), pose, pose, 64)
+tiny = LoftrConfig(initial_dim=8, block_dims=(8, 12, 16), d_coarse=16,
+                   d_fine=8, nhead=2, n_coarse_layers=1, match_thr=0.0)
+out = LoftrMatcher(cfg=tiny, device="cpu").predict([cA], [cB])
+assert out[0].ndim == 2 and out[0].shape[1] == 5
 assert not any(k in ("jax", "cv2", "yaml", "sklearn")
                or k.startswith(("jax.", "bundlesdf_tpu.", "sklearn."))
                for k in sys.modules if sys.modules[k] is not None)
