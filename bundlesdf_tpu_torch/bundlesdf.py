@@ -72,15 +72,16 @@ class BundleSdf:
         self.cfg_nerf = (cfg_nerf if cfg_nerf is not None
                          else load_config(cfg_nerf_dir,
                                           default_nerf_config()))
-        if use_gui:
-            raise NotImplementedError("the GUI is not ported to "
-                                      "bundlesdf_tpu_torch (ROADMAP.md queue "
-                                      "1, item 3)")
         self.device = resolve_device(device)
         self.start_nerf_keyframes = start_nerf_keyframes
         self.debug_dir = self.cfg_track["debug_dir"]
         self.SPDLOG = int(self.cfg_track.get("SPDLOG", 1))
         os.makedirs(self.debug_dir, exist_ok=True)
+        self.gui = None
+        if use_gui:
+            from bundlesdf_tpu_torch.gui import BundleSdfGui
+            self.gui = BundleSdfGui(
+                out_dir=os.path.join(self.debug_dir, "gui"))
         if matcher is not None:
             self.matcher = matcher
         else:
@@ -447,6 +448,8 @@ class BundleSdf:
 
             frame = self.make_frame(color, depth, K, id_str, mask, occ_mask,
                                     pose_in_model)
+            if self.gui is not None:
+                frame.gui_mask = mask
         # host feature detection runs now, overlapping the previous frame's
         # BA on the device (skipped when denoise_cloud may still shrink the
         # mask — detection must see the final mask)
@@ -529,6 +532,16 @@ class BundleSdf:
                 self._run_nerf_batch()
         with self._stage("artifacts"):
             self.save_newframe_result(frame)
+        if self.gui is not None:
+            # GUI feed (ref bundlesdf.py:624-632)
+            self.gui.set_nerf_num_frames(self.nerf_num_frames)
+            if self.mesh is not None:
+                self.gui.update_mesh(self.mesh)
+            self.gui.update_frame(
+                rgb=frame.color, mask=frame.gui_mask,
+                ob_in_cam=np.linalg.inv(frame.pose_in_model),
+                id_str=frame.id_str, K=self.K,
+                n_keyframe=len(self.bundler.keyframes))
 
     # ------------------------------------------------------------------
     # NOF batch (ref run_nerf bundlesdf.py:64-260, continual branch)
@@ -696,10 +709,11 @@ class BundleSdf:
                         if k[0] in ids or k[1] in ids]:
                 del self.bundler.matches[key]
 
-        # the per-batch mesh exists to feed a GUI (ref bundlesdf.py:234-241);
-        # headless runs skip the dense SDF query + marching unless
+        # the per-batch mesh exists to feed the GUI (ref bundlesdf.py:234-241);
+        # runs without one skip the dense SDF query + marching unless
         # mesh_every_batch asks. The final batch always extracts.
-        if final or bool(self.cfg_nerf.get("mesh_every_batch", False)):
+        if final or self.gui is not None \
+                or bool(self.cfg_nerf.get("mesh_every_batch", False)):
             mesh = self.nerf.extract_mesh()
             if mesh is not None:
                 self.mesh = self.nerf.mesh_to_real_world(mesh,

@@ -3,31 +3,29 @@ the z-buffer rasterizer and marching tetrahedra, twins of the numpy paths
 in `mesh/render.py` and `mesh/marching.py`.
 
 Port of `bundlesdf_tpu/native.py`. The port builds its own copy of the
-library at first use, with `make -C native BUILD=<private dir>`, and
-renames the finished file into `bundlesdf_tpu_torch/csrc/build/` under a
-name keyed by the sources. Nothing else writes that path, and a file only
-appears there through that rename, so the loader never opens a library
-that is still being written (the JAX package builds into `native/build/`
-in place). Without a toolchain the callers take their numpy paths.
+library at first use, with `make -C native BUILD=<private dir>`, through
+`utils/build.py`, which renames the finished file into
+`bundlesdf_tpu_torch/csrc/build/` under a name keyed by the sources, so the
+loader never opens a library that is still being written (the JAX package
+builds into `native/build/` in place). Without a toolchain the callers take
+their numpy paths.
 """
 from __future__ import annotations
 
 import ctypes
 import glob
-import hashlib
 import logging
 import os
-import shutil
 import subprocess
-import tempfile
 import threading
 
 import numpy as np
 
+from bundlesdf_tpu_torch.utils import build
+from bundlesdf_tpu_torch.utils.build import BUILD_DIR
+
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "native")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                         "build")
 _LIB_NAME = "libbundlesdf_native.so"
 
 _lib = None
@@ -37,27 +35,22 @@ _tried = False
 _lock = threading.Lock()
 
 
+def _sources():
+    return [os.path.join(_NATIVE_DIR, "Makefile")] + sorted(
+        glob.glob(os.path.join(_NATIVE_DIR, "src", "*")))
+
+
 def library_path() -> str:
     """Where the port's build of the library lives: one file per version of
     `native/Makefile` and `native/src/*`."""
-    h = hashlib.sha1()
-    for f in [os.path.join(_NATIVE_DIR, "Makefile")] + sorted(
-            glob.glob(os.path.join(_NATIVE_DIR, "src", "*"))):
-        with open(f, "rb") as fh:
-            h.update(os.path.basename(f).encode() + fh.read())
-    return os.path.join(BUILD_DIR, f"libbundlesdf_native_{h.hexdigest()[:12]}"
-                                   f".so")
+    return build.library_path("bundlesdf_native", _sources())
 
 
-def _build(path):
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="native.", dir=BUILD_DIR)
-    try:
-        subprocess.run(["make", "-C", _NATIVE_DIR, f"BUILD={tmp}"], check=True,
-                       capture_output=True, timeout=300)
-        os.replace(os.path.join(tmp, _LIB_NAME), path)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+def _build():
+    return build.build_so(
+        "bundlesdf_native", _sources(),
+        lambda tmp: (["make", "-C", _NATIVE_DIR, f"BUILD={tmp}"],
+                     os.path.join(tmp, _LIB_NAME)))[0]
 
 
 def _load():
@@ -67,11 +60,8 @@ def _load():
             return _lib
         _tried = True
         try:
-            path = library_path()
-            if not os.path.exists(path):
-                _build(path)
-            lib = ctypes.CDLL(path)
-        except (OSError, subprocess.SubprocessError) as e:
+            lib = ctypes.CDLL(_build())
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
             logging.info(f"native library unavailable ({e}); using the numpy "
                          "marching and rasterizer paths")
             return None

@@ -18,24 +18,23 @@ structure). The kernel then sums each run of equal rows along that stride
 before one atomic.
 
 The kernel is built at first use with `nvcc` from the `.cu` in this
-package into `csrc/build/` and bound through ctypes: a plain C entry point
-builds in seconds, where a PyTorch C++ extension takes minutes.
+package into `csrc/build/` (`utils/build.py`) and bound through ctypes: a
+plain C entry point builds in seconds, where a PyTorch C++ extension takes
+minutes.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
 import shutil
-import subprocess
 
 import torch
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc")
-_SOURCE = os.path.join(_CSRC, "scatter_rows.cu")
-BUILD_DIR = os.path.join(_CSRC, "build")
+from bundlesdf_tpu_torch.utils.build import build_so
+
+_SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "scatter_rows.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # samples one thread walks along a column when group > 1 (kSamples in the
@@ -67,21 +66,11 @@ def build_library() -> tuple[str, str]:
     """Compile `csrc/scatter_rows.cu` into `csrc/build/` unless a build of
     the same source is already there. Returns (path, compiler output).
     Raises if the build fails."""
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()
-                              ).hexdigest()[:12]
-    path = os.path.join(BUILD_DIR, f"libscatter_rows_{digest}.so")
-    if os.path.exists(path):
-        return path, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)  # atomic: concurrent builders never see a partial .so
-    return path, proc.stdout + proc.stderr
+    def command(tmp):
+        out = os.path.join(tmp, "libscatter_rows.so")
+        return [_find_nvcc(), *NVCC_FLAGS, "-o", out, _SOURCE], out
+
+    return build_so("scatter_rows", [_SOURCE], command, NVCC_FLAGS)
 
 
 @functools.cache

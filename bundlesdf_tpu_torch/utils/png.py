@@ -5,17 +5,22 @@ cv2).
 `write_png` takes uint8 or uint16 arrays, (H, W) gray or (H, W, 3) RGB,
 and writes every row with filter 2 (Up) by default, which is one
 vectorised difference, at zlib level 1. `read_png` decodes 8- and 16-bit
-gray, gray+alpha, RGB and RGBA and 8-bit palette images (dataset PNGs come
-in all of them), non-interlaced, with all five row filters (encoders
-choose a filter per row). An image whose rows use only None, Sub and Up is
+gray, gray+alpha, RGB and RGBA, 8-bit palette images and 1-, 2- and 4-bit
+gray and palette images (dataset PNGs come in all of them),
+non-interlaced, with all five row filters (encoders choose a filter per
+row). An image whose rows use only None, Sub and Up is
 decoded row by row, each row vectorised; Average and Paeth also read the
 decoded byte to their left, so an image with such rows is decoded one
 anti-diagonal of pixels at a time (`_unfilter_wavefront`). Channels are in
 file order (RGB), not cv2's BGR; 16-bit samples come back as native
-uint16.
+uint16. `read_png_unchanged` gives what cv2.imread(path,
+cv2.IMREAD_UNCHANGED) gives instead: None for a missing file, channels in
+BGR(A) order, gray + alpha as BGRA, and a palette image with a tRNS chunk
+as BGRA.
 """
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 
@@ -108,11 +113,12 @@ def _unfilter_wavefront(kinds, lines, H, W, bpp):
     return s[diag + 2, r + 1].astype(np.uint8).reshape(H, W * bpp)
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """The image of the PNG file @data (see module docstring)."""
+def decode_png(data: bytes, palette_alpha: bool = False) -> np.ndarray:
+    """The image of the PNG file @data (see module docstring). With
+    @palette_alpha, a palette image with a tRNS chunk comes back RGBA."""
     if data[:8] != _SIGNATURE:
         raise ValueError("read_png: not a PNG file")
-    pos, idat, hdr, plte = 8, [], None, None
+    pos, idat, hdr, plte, trns = 8, [], None, None, None
     while pos + 8 <= len(data):
         n, kind = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + n]
@@ -126,17 +132,24 @@ def decode_png(data: bytes) -> np.ndarray:
             plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"tRNS":
+            trns = np.frombuffer(body, np.uint8)
         elif kind == b"IEND":
             break
     if hdr is None:
         raise ValueError("read_png: no IHDR chunk")
     W, H, depth, ctype, _, _, interlace = hdr
-    if interlace or ctype not in _CHANNELS or depth not in (8, 16) \
-            or (ctype == 3 and (depth != 8 or plte is None)):
+    packed = depth in (1, 2, 4) and ctype in (0, 3)
+    if interlace or ctype not in _CHANNELS \
+            or (depth not in (8, 16) and not packed) \
+            or (ctype == 3 and (depth == 16 or plte is None)):
         raise ValueError(f"read_png: unsupported PNG (bit depth {depth}, "
                          f"color type {ctype}, interlace {interlace})")
-    bpp = _CHANNELS[ctype] * depth // 8
-    stride = W * bpp
+    # rows are unfiltered as bytes; pixels of under 8 bits are unpacked
+    # from them afterwards
+    bpp = max(1, _CHANNELS[ctype] * depth // 8)
+    stride = -(-W * _CHANNELS[ctype] * depth // 8)
+    W_img, W = W, stride // bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     raw = raw[:H * (stride + 1)].reshape(H, stride + 1)
     kinds = raw[:, 0]
@@ -160,10 +173,21 @@ def decode_png(data: bytes) -> np.ndarray:
             prior = out[y]
     if depth == 16:
         img = out.view(">u2").astype(np.uint16)
+    elif packed:
+        per = 8 // depth
+        shifts = (8 - depth * (1 + np.arange(per))).astype(np.uint8)
+        img = ((out[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(
+            H, -1)[:, :W_img]
+        if ctype == 0:        # gray scaled to 8 bits, as libpng expands it
+            img = img * np.uint8(255 // ((1 << depth) - 1))
     else:
         img = out
-    img = img.reshape(H, W, _CHANNELS[ctype])
+    img = img.reshape(H, W_img, _CHANNELS[ctype])
     if ctype == 3:
+        if palette_alpha and trns is not None:
+            alpha = np.full(len(plte), 255, np.uint8)
+            alpha[:min(len(trns), len(plte))] = trns[:len(plte)]
+            plte = np.concatenate([plte, alpha[:, None]], axis=1)
         return plte[img[..., 0]]
     return img[..., 0] if img.shape[2] == 1 else img
 
@@ -172,3 +196,21 @@ def read_png(path: str) -> np.ndarray:
     """Read the PNG at @path (see module docstring)."""
     with open(path, "rb") as f:
         return decode_png(f.read())
+
+
+def read_png_unchanged(path: str):
+    """`cv2.imread(path, cv2.IMREAD_UNCHANGED)` for a PNG: None when @path
+    does not exist; gray as (H, W); color as BGR, alpha as BGRA (gray +
+    alpha with the gray replicated); a palette image expanded to BGR, or
+    BGRA when it has a tRNS chunk."""
+    if not os.path.exists(path):
+        return None
+    with open(path, "rb") as f:
+        img = decode_png(f.read(), palette_alpha=True)
+    if img.ndim == 2:
+        return img
+    if img.shape[2] == 2:
+        g, a = img[..., 0], img[..., 1]
+        return np.stack([g, g, g, a], axis=-1)
+    order = [2, 1, 0, 3][:img.shape[2]]
+    return np.ascontiguousarray(img[..., order])

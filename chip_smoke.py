@@ -35,7 +35,7 @@ Phases, one printed line each (or a few), any failure exits non-zero:
      frames/s, stage times, memory, FAILs, keyframes, ADD/ADD-S against
      the ground truth and the stored JAX trajectory's;
   8. the full online loop, strict sync: `BundleSdf.run` with the NOF on
-     over the same 30 frames (phase 7's track config and features; the
+     over the first 15 of those frames (phase 7's track config and features; the
      NOF config of `run_custom.py --mode run_video`, `n_step` 500,
      `start_nerf_keyframes` 5, `sync_max_delay` 0): frames/s, NOF batches,
      steps and steps/s, the stall anatomy (`pipeline_stats`), memory, the
@@ -86,11 +86,25 @@ Phases, one printed line each (or a few), any failure exits non-zero:
      through LoFTR: run_custom's track config over the 30 frames, NOF off
      (frames/s, pairs a frame, device ms of the warp and the net, peak
      memory, FAILs, finite poses);
- 16. a JSON line of per-kernel results, then the final status line.
+ 16. the HO3D path: the 30 committed JPEGs of tests/fixtures/ho3d_orbit30
+     decoded on the host by `utils/jpeg.py` (each frame's pixel SHA-256
+     equal to imageio's, ms a frame by stage); the orbit written as an
+     HO3D folder (tests/ho3d_layout.py) and read back through
+     `Ho3dReader`; `run_ho3d.run_one_video` over its first 20 frames with
+     the NOF on (0 FAIL, ADD against phase 9's on those frames, online
+     Chamfer, launches = NOF steps); `run_ho3d.run_one_video_global_nerf`
+     at HO3D's refine config (finest 512, 16 levels, four of them hashed,
+     84,133,278 rows, n_step cut to 400) and the kernel on one such
+     step's rows, timed and checked as in phase 10; `benchmark_ho3d`'s
+     rows and results.csv; `run_videos_parallel` with two 10-frame
+     videos interleaved on one card against each alone; a `use_gui` run;
+ 17. a JSON line of per-kernel results, then the final status line.
 --profile adds torch.profiler tables of 5 NOF steps, of 5 tracked frames,
 of 20 refine steps, of the online loop's first NOF batch and of one LoFTR
 predict of 8 pairs (f32 and bf16). Needs a CUDA
-card, nvcc and g++ (the native library); refuses to run on the CPU.
+card, nvcc, g++ (the native library) and cc (the JPEG decoder); refuses
+to run on the CPU, and fails if jax, cv2, PIL, imageio or pandas was
+imported.
 """
 from __future__ import annotations
 
@@ -586,6 +600,7 @@ def phase_profile(runner, n_steps=5):
 # ---------------------------------------------------------------------------
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "tracker_orb_30f.npz")
 N_TRACK = 30
+N_STRICT = 15           # phase 8's frames: the first 15 of the 30
 # stated tolerances of the card-vs-CPU component checks
 MAP_TOL_M = 1e-4        # depth / xyz maps, meters
 NORMAL_TOL = 1e-3       # unit normals: cross products of one-pixel xyz
@@ -1086,7 +1101,8 @@ def phase_video(seq, feats, fx, name, cfg_nerf, n_frames=N_TRACK,
            "chamfer_cm": scores["chamfer(cm)"],
            "mesh_vertices": 0 if t.mesh is None else len(t.mesh.vertices),
            "mesh_faces": 0 if t.mesh is None else len(t.mesh.faces),
-           "marching": marching_tetrahedra.last_path, "artifacts_s": art_s}
+           "marching": marching_tetrahedra.last_path, "artifacts_s": art_s,
+           "pred_poses": pred}
     vs = "" if strict_ref is None else (
         f" (strict sync {strict_ref['frames_per_s']:.4f} frames/s, "
         f"{strict_ref['ms_per_frame']:.3f} ms/frame)")
@@ -2042,6 +2058,380 @@ def phase_loftr_tracker(seq, n_frames=N_TRACK, traced=range(20, 25),
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the HO3D path
+# ---------------------------------------------------------------------------
+HO3D_FRAMES = 20          # run_ho3d's frames: the first 20 of the fixture's 30
+HO3D_REFINE_STEPS = 400   # the HO3D refine's n_step, cut from 2000
+HO3D_PAR_FRAMES = 10      # frames of each of the two interleaved videos
+
+
+def _ho3d_layout():
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import ho3d_layout
+    return ho3d_layout
+
+
+def phase_ho3d_decode():
+    """The 30 committed JPEGs (tests/fixtures/ho3d_orbit30) decoded on the
+    host by `utils/jpeg.py`: each frame's pixel SHA-256 equals the one
+    imageio decoded when the fixture was made; ms a frame by stage."""
+    from bundlesdf_tpu_torch.utils import jpeg
+    lay = _ho3d_layout()
+    t0 = time.perf_counter()
+    lib = jpeg.build_library()
+    build_s = time.perf_counter() - t0
+    hashes, files = lay.load_hashes(), lay.fixture_jpegs()
+    jpeg.read_jpeg(files[0])
+    times, bad = {}, []
+    t0 = time.perf_counter()
+    for path in files:
+        img = jpeg.read_jpeg(path, times)
+        key = os.path.basename(path)[:-4]
+        if img.shape != (480, 640, 3) or \
+                lay.pixel_sha256(img[..., :3]) != hashes[key]:
+            bad.append(key)
+    n = len(files)
+    res = {"ms_per_frame": 1e3 * (time.perf_counter() - t0) / n,
+           **{f"{k}_ms": times.get(k, 0.0) / n for k in jpeg.STAGES},
+           "build_s": build_s}
+    print(f"HO3D decode: {n} baseline JPEGs 480x640 4:2:0 q95 "
+          f"({os.path.relpath(lib, ROOT)} built in {build_s:.2f} s), "
+          f"{res['ms_per_frame']:.3f} ms a frame on the host: "
+          + ", ".join(f"{k} {res[f'{k}_ms']:.3f}" for k in jpeg.STAGES)
+          + f" ms; SHA-256 equal to imageio's for {n - len(bad)} of {n}",
+          flush=True)
+    if bad:
+        raise AssertionError(f"HO3D decode: frames {bad} differ from "
+                             f"imageio's pixels")
+    return res
+
+
+def phase_ho3d_reader(root, seq, n):
+    """Write the first @n frames of the orbit as HO3D lays them out (the
+    committed JPEGs, packed depth, meta pickles, XMem masks with frame 1's
+    hand mask absent, visible_mesh.ply) and read them back through
+    `Ho3dReader`. Returns the video dir."""
+    from bundlesdf_tpu_torch.datasets import Ho3dReader
+    lay = _ho3d_layout()
+    t0 = time.perf_counter()
+    video = lay.write_ho3d_video(root, seq, n_frames=n,
+                                 jpegs=lay.fixture_jpegs(n))
+    write_s = time.perf_counter() - t0
+    r = Ho3dReader(video)
+    t0 = time.perf_counter()
+    frames = [(r.get_color(i), r.get_depth(i), r.get_mask(i),
+               r.get_occ_mask(i)) for i in range(len(r))]
+    read_ms = 1e3 * (time.perf_counter() - t0) / len(r)
+    depth_err = max(float(np.abs(d - seq["depths"][i]).max())
+                    for i, (_, d, _, _) in enumerate(frames))
+    pose_err = max(float(np.abs(r.get_gt_pose(i) - np.linalg.inv(
+        seq["cam_in_obs"][i])).max()) for i in range(len(r)))
+    ok = (len(r) == n and r.id_strs == seq["id_strs"][:n]
+          and np.array_equal(r.K, seq["K"])
+          and r.get_video_name() == "SYN1"
+          and depth_err <= lay.DEPTH_SCALE / 2 + 1e-6 and pose_err <= 1e-12
+          and all(np.array_equal(m > 0, seq["masks"][i] > 0)
+                  for i, (_, _, m, _) in enumerate(frames))
+          and frames[1][3] is None
+          and all(o is not None and not o.any()
+                  for i, (_, _, _, o) in enumerate(frames) if i != 1))
+    print(f"HO3D reader: {n} frames written in {write_s:.2f} s; "
+          f"Ho3dReader color + depth + mask + hand mask {read_ms:.3f} ms a "
+          f"frame; depth max err {depth_err:.3e} m (pack step "
+          f"{lay.DEPTH_SCALE:.3e}), GT pose max err {pose_err:.3e}, K "
+          f"equal, hand mask of frame 1 absent -> None: {ok}", flush=True)
+    if not ok:
+        raise AssertionError("HO3D reader: the layout does not read back as "
+                             "written")
+    return video, read_ms
+
+
+def phase_ho3d_run(video, out_dir, seq, fx, ref_add_mm, n):
+    """`run_ho3d.run_one_video` with the NOF on (`_make_tracker`'s configs,
+    the port's live ORB) on the card: frames/s, `pipeline_stats`, launches
+    (= NOF steps, on the runner's stream), FAILs, ADD against the ground
+    truth beside phase 9's on the same frames, the online mesh Chamfer."""
+    from bundlesdf_tpu_torch import run_ho3d
+    from bundlesdf_tpu_torch.benchmark_synthetic import collect_frame_statuses
+    from bundlesdf_tpu_torch.eval.benchmark import benchmark_video
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    t, launches, streams = _counted(
+        lambda: run_ho3d.run_one_video(video, out_dir))
+    dt = time.perf_counter() - t0
+    st = t.pipeline_stats
+    steps = st.get("nof_steps_total", 0)
+    folder = os.path.join(out_dir, "SYN1")
+    ids = seq["id_strs"][:n]
+    status = collect_frame_statuses(folder, ids)
+    pred = np.array([np.loadtxt(os.path.join(folder, "ob_in_cam",
+                                             f"{i}.txt")) for i in ids])
+    gt = np.linalg.inv(seq["cam_in_obs"][:n])
+    mp = fx["model_pts"]
+    sc = benchmark_video(None, gt, mp, visible_gt_points(seq, mp, n),
+                         pred_poses=pred, pred_mesh=t.mesh)
+    nerf_stream = t.nerf.stream.cuda_stream
+    res = {"frames_per_s": n / dt, "ms_per_frame": 1e3 * dt / n,
+           "launches": launches, "nof_steps_total": steps,
+           "n_batches": st["n_batches"], "fail": status.count("FAIL"),
+           "add_mm": sc["ADD(cm)"] * 10, "adds_mm": sc["ADDS(cm)"] * 10,
+           "chamfer_cm": sc["chamfer(cm)"],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "artifacts_s": sum(s.get("artifacts", 0.0)
+                              for s in t.stage_stats),
+           "pipeline_stats": st}
+    print(f"run_ho3d run_video: {n} frames 480x640 from JPEG, NOF on "
+          f"(start 5 keyframes, n_step {t.cfg_nerf['n_step']}, sync_max_"
+          f"delay {t.cfg_nerf.get('sync_max_delay', 0)}), SPDLOG 2, live "
+          f"ORB: {res['frames_per_s']:.4f} frames/s "
+          f"{res['ms_per_frame']:.3f} ms/frame; NOF batches "
+          f"{st['n_batches']}, steps {steps}; scatter_rows launches "
+          f"{launches}; kernel streams "
+          f"{ {('nof' if k == nerf_stream else k): v for k, v in streams.items()} }; "
+          f"peak {res['peak_gib']:.3f} GiB; FAIL {res['fail']}; mean ADD "
+          f"{res['add_mm']:.4f} mm ADD-S {res['adds_mm']:.4f} mm (phase 9 "
+          f"on these frames {ref_add_mm:.4f} mm); online mesh "
+          f"{0 if t.mesh is None else len(t.mesh.faces)} faces, Chamfer "
+          f"{res['chamfer_cm']:.4f} cm", flush=True)
+    print(f"run_ho3d pipeline_stats "
+          f"{json.dumps({k: round(v, 6) for k, v in st.items()})}",
+          flush=True)
+    if "MISSING" in status or res["fail"]:
+        raise AssertionError(f"run_ho3d: statuses {status}")
+    if res["add_mm"] > max(2 * ref_add_mm, ref_add_mm + 1):
+        raise AssertionError(f"run_ho3d: mean ADD {res['add_mm']} mm above "
+                             f"max(2 x phase 9, phase 9 + 1 mm), phase 9 "
+                             f"{ref_add_mm} mm")
+    if t.mesh is None or not res["chamfer_cm"] < CHAMFER_MAX_CM:
+        raise AssertionError(f"run_ho3d: online mesh Chamfer "
+                             f"{res['chamfer_cm']} cm")
+    if not (steps > 0 and launches == steps) or set(streams) != {
+            nerf_stream} or \
+            nerf_stream == torch.cuda.default_stream().cuda_stream:
+        raise AssertionError(f"run_ho3d: {launches} scatter_rows launches "
+                             f"for {steps} NOF steps on streams "
+                             f"{dict(streams)} (the runner's: {nerf_stream})")
+    return res
+
+
+def phase_ho3d_bench(video, out_dir, log_dir):
+    """`python -m bundlesdf_tpu_torch.benchmark_ho3d` on the run and its
+    refine: its rows (the refined mesh's Chamfer among them) and
+    `results.csv`."""
+    from bundlesdf_tpu_torch import benchmark_ho3d
+    rows = benchmark_ho3d.main(["--video_dirs", video, "--out_dir", out_dir,
+                                "--log_dir", log_dir])
+    with open(os.path.join(log_dir, "results.csv")) as f:
+        lines = f.read().splitlines()
+    print(f"benchmark_ho3d rows {json.dumps(rows)}; results.csv "
+          f"{len(lines)} lines", flush=True)
+    if lines[0] != "key,value" or len(lines) != len(rows) + 1 or \
+            not np.isfinite(rows["ours/SYN1/ADD(cm)"]) or \
+            not rows["ours/SYN1/chamfer(cm)"] < CHAMFER_MAX_CM:
+        raise AssertionError(f"benchmark_ho3d: rows {rows}, csv {lines}")
+    return rows
+
+
+def phase_ho3d_refine(video, out_dir, seq, fx, n):
+    """`run_ho3d.run_one_video_global_nerf` (`--mode global_refine`) at
+    HO3D's refine config, n_step cut: launches (= steps, the runner's
+    stream), native marching at mesh_resolution 0.003, the refined mesh's
+    Chamfer; then the kernel on the rows of one HO3D refine step, the
+    four hashed levels marked."""
+    from bundlesdf_tpu_torch import run_ho3d
+    from bundlesdf_tpu_torch.config import load_yaml
+    from bundlesdf_tpu_torch.mesh.marching import marching_tetrahedra
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    t, launches, streams = _counted(
+        lambda: run_ho3d.run_one_video_global_nerf(
+            video, out_dir, refine_overrides={"n_step": HO3D_REFINE_STEPS}))
+    wall = time.perf_counter() - t0
+    st, cfg, runner = t.refine_stats, t.nerf.cfg, t.nerf
+    folder = os.path.join(out_dir, "SYN1")
+    stamps = sorted(d for d in os.listdir(folder) if os.path.exists(
+        os.path.join(folder, d, "keyframes.yml")))
+    reg = load_yaml(os.path.join(folder, stamps[-1], "keyframes.yml"))
+    ids = sorted(reg)
+    poses = np.loadtxt(os.path.join(
+        folder, "nerf_with_bundletrack_online",
+        "optimized_poses.txt")).reshape(-1, 4, 4)
+    mp = fx["model_pts"]
+    sc = _keyframe_add(seq, mp, ids, poses, visible_gt_points(seq, mp, n),
+                       mesh=t.mesh)
+    nerf_stream = runner.stream.cuda_stream
+    layout = runner.spec.grid.layout()
+    res = {"steps": st["steps"], "steps_per_s": st["steps_per_s"],
+           "launches": launches, "wall_s": wall,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "n_rows": runner.spec.grid.total_rows,
+           "chamfer_cm": sc["chamfer(cm)"], "add_mm": sc["ADD(cm)"] * 10,
+           "mesh_faces": len(t.mesh.faces),
+           "hashed_levels": [i for i, (_, dense, _, _) in enumerate(layout)
+                             if not dense]}
+    print(f"run_ho3d global_refine: {st['keyframes']} keyframes, "
+          f"{st['steps']} steps (n_step {cfg['n_step']}, cut from 2000), "
+          f"{cfg['num_levels']} levels finest {cfg['finest_res']} "
+          f"T=2^{cfg['log2_hashmap_size']} ({res['n_rows']} rows; levels "
+          f"{res['hashed_levels']} hashed), {cfg['N_rand']} rays x "
+          f"({cfg['N_samples']} + {cfg['N_samples_around_depth']}) samples, "
+          f"mesh_resolution {cfg['mesh_resolution']}: "
+          f"{st['steps_per_s']:.3f} steps/s, wall {wall:.3f} s, peak "
+          f"{res['peak_gib']:.3f} GiB; scatter_rows launches {launches}; "
+          f"kernel streams "
+          f"{ {('nof' if k == nerf_stream else k): v for k, v in streams.items()} }; "
+          f"marching {marching_tetrahedra.last_path}; mesh "
+          f"{res['mesh_faces']} faces, Chamfer {res['chamfer_cm']:.4f} cm; "
+          f"optimized poses ADD {res['add_mm']:.4f} mm over {len(ids)} "
+          f"keyframes", flush=True)
+    if launches != st["steps"] or set(streams) != {nerf_stream} or \
+            nerf_stream == torch.cuda.default_stream().cuda_stream:
+        raise AssertionError(f"HO3D refine: {launches} scatter_rows launches "
+                             f"for {st['steps']} steps, on streams "
+                             f"{dict(streams)} (the runner's: {nerf_stream})")
+    if marching_tetrahedra.last_path != "native" or \
+            cfg["mesh_resolution"] != 0.003:
+        raise AssertionError(f"HO3D refine: marching "
+                             f"{marching_tetrahedra.last_path} at "
+                             f"{cfg['mesh_resolution']}")
+    if not res["chamfer_cm"] < CHAMFER_MAX_CM:
+        raise AssertionError(f"HO3D refine: Chamfer {res['chamfer_cm']} cm "
+                             f"(gate {CHAMFER_MAX_CM} cm)")
+    if len(res["hashed_levels"]) != 4:
+        raise AssertionError(f"HO3D refine: hashed levels "
+                             f"{res['hashed_levels']}, expected 4")
+    k = res["kernel"] = phase_scatter_real(runner, name="HO3D refine step")
+    print("scatter HO3D refine step by level (rows, vector atomics at group "
+          f"{k['group']}): " + "; ".join(
+              f"L{i} r{r} {n_rows}{' hashed' if not dense else ''} "
+              f"{k['atomics'][i]}"
+              for i, (r, dense, n_rows, _) in enumerate(layout)), flush=True)
+    return res
+
+
+def _sub_sequence(seq, sl):
+    per_frame = ("colors", "depths", "masks", "cam_in_obs", "id_strs")
+    return {k: (v[sl] if k in per_frame else v) for k, v in seq.items()}
+
+
+def phase_ho3d_parallel(root, out_dir, seq, n=HO3D_PAR_FRAMES):
+    """`parallel/videos.py::run_videos_parallel` on one card: two
+    HO3D-layout videos (frames 0-9 and 10-19) tracked interleaved with
+    devices [cuda:0, cuda:0], tracker only, against each video tracked
+    alone; videos an hour both ways. Then one video with `use_gui`."""
+    import functools
+    from bundlesdf_tpu_torch.bundlesdf import BundleSdf
+    from bundlesdf_tpu_torch.config import (default_nerf_config,
+                                            default_track_config)
+    from bundlesdf_tpu_torch.datasets import Ho3dReader
+    from bundlesdf_tpu_torch.parallel.videos import run_videos_parallel
+    lay = _ho3d_layout()
+    jpegs = lay.fixture_jpegs(2 * n)
+    videos = [lay.write_ho3d_video(
+        root, _sub_sequence(seq, slice(k * n, (k + 1) * n)), name=name,
+        jpegs=jpegs[k * n:(k + 1) * n], hand_absent=())
+        for k, name in enumerate(("PAR1", "PAR2"))]
+
+    def make_tracker(out, device, use_gui=False):
+        cfg = default_track_config()
+        cfg["SPDLOG"] = 1
+        cfg["depth_processing"]["zfar"] = 1
+        cfg["debug_dir"] = out
+        return BundleSdf(cfg_track=cfg, cfg_nerf=default_nerf_config(),
+                         start_nerf_keyframes=10 ** 9, use_gui=use_gui,
+                         device=device)
+
+    card = torch.device("cuda", 0)
+    outs = {m: [os.path.join(out_dir, f"{m}{k}") for k in range(2)]
+            for m in ("alone", "interleaved")}
+    t0 = time.perf_counter()
+    for v, o in zip(videos, outs["alone"]):
+        run_videos_parallel([(Ho3dReader(v), o)], make_tracker,
+                            devices=[card])
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_videos_parallel([(Ho3dReader(v), o) for v, o in
+                         zip(videos, outs["interleaved"])], make_tracker,
+                        devices=[card, card])
+    torch.cuda.synchronize()
+    par_s = time.perf_counter() - t0
+    errs, equal = [], True
+    for k in range(2):
+        ids = Ho3dReader(videos[k]).id_strs
+        a, b = (np.array([np.loadtxt(os.path.join(outs[m][k], "ob_in_cam",
+                                                  f"{i}.txt")) for i in ids])
+                for m in ("alone", "interleaved"))
+        equal &= bool(np.array_equal(a, b))
+        errs.append(float(np.abs(a - b).max()))
+    gui_out = os.path.join(out_dir, "gui")
+    t0 = time.perf_counter()
+    tr = run_videos_parallel([(Ho3dReader(videos[0]), gui_out)],
+                             functools.partial(make_tracker, use_gui=True),
+                             devices=[card])[0]
+    gui_s = time.perf_counter() - t0
+    every = tr.gui.every_n
+    written = sorted(os.listdir(os.path.join(gui_out, "gui")))
+    want = [f"gui_{i}.png" for i in Ho3dReader(videos[0]).id_strs[
+        every - 1::every]]
+    res = {"videos_per_hour_interleaved": 2 * 3600 / par_s,
+           "videos_per_hour_sequential": 2 * 3600 / seq_s,
+           "interleaved_s": par_s, "sequential_s": seq_s,
+           "bit_equal": equal, "max_pose_diff": max(errs),
+           "gui_images": len(written), "gui_s": gui_s}
+    print(f"run_videos_parallel: 2 HO3D videos x {n} frames, tracker only, "
+          f"devices [cuda:0, cuda:0]: interleaved {par_s:.3f} s "
+          f"({res['videos_per_hour_interleaved']:.1f} videos/hour), one "
+          f"after the other {seq_s:.3f} s "
+          f"({res['videos_per_hour_sequential']:.1f} videos/hour); poses "
+          f"interleaved vs alone bit-equal {equal}, max diff "
+          f"{res['max_pose_diff']:.3e}; use_gui run of {n} frames "
+          f"{gui_s:.3f} s, {len(written)} panel(s) {written} (every_n "
+          f"{every})", flush=True)
+    # bit-equal is what the host loop promises: each tracker sees the same
+    # inputs in the same order, and the tracker's programs are
+    # deterministic on the card
+    if not equal:
+        raise AssertionError(f"run_videos_parallel: interleaved poses differ "
+                             f"from each video alone by {errs}")
+    if written != want:
+        raise AssertionError(f"HO3D GUI: wrote {written}, expected {want}")
+    return res
+
+
+def phase_ho3d(seq, fx, online):
+    """Phase 16 in a temporary folder; @online: phase 9's result, whose
+    poses give the ADD gate on the same frames."""
+    from bundlesdf_tpu_torch.eval.benchmark import benchmark_video
+    n = HO3D_FRAMES
+    gt = np.linalg.inv(seq["cam_in_obs"][:n])
+    ref = benchmark_video(None, gt, fx["model_pts"],
+                          pred_poses=online["pred_poses"][:n])
+    res = {"decode": phase_ho3d_decode()}
+    with tempfile.TemporaryDirectory(prefix="bsdf_ho3d_") as tmp:
+        video, res["reader_ms"] = phase_ho3d_reader(tmp, seq, n)
+        out = os.path.join(tmp, "out")
+        res["run"] = phase_ho3d_run(video, out, seq, fx,
+                                    ref["ADD(cm)"] * 10, n)
+        torch.cuda.empty_cache()
+        res["refine"] = phase_ho3d_refine(video, out, seq, fx, n)
+        torch.cuda.empty_cache()
+        res["bench"] = phase_ho3d_bench(video, out, os.path.join(tmp, "log"))
+        res["parallel"] = phase_ho3d_parallel(
+            os.path.join(tmp, "par"), os.path.join(tmp, "par_out"), seq)
+    return res
+
+
+# what the kernels line keeps of a real step's measurement
+KERNEL_KEYS = ("max_abs_err", "real_step_ms", "group1_ms", "library_ms",
+               "plain_ms", "zero_fill_ms", "bound_ms", "bound_by",
+               "bound_share", "m_rows", "n_rows", "group", "atomics",
+               "check_by_level")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this smoke run "
@@ -2070,7 +2460,8 @@ def main():
     from bundlesdf_tpu_torch.config import default_track_config
     cfg_t = default_track_config()
     t, strict = phase_video(seq, feats, fx, "strict sync",
-                            online_nerf_config(cfg_t, sync_max_delay=0))
+                            online_nerf_config(cfg_t, sync_max_delay=0),
+                            n_frames=N_STRICT)
     mesh_err = phase_mesh_vs_cpu(t.nerf)
     del t
     torch.cuda.empty_cache()
@@ -2103,11 +2494,23 @@ def main():
     if "--profile" in sys.argv[1:]:
         phase_loftr_profile()
     print(f"phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    ho3d = phase_ho3d(seq, fx, threaded)
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
     print(json.dumps({"orb": orb, "live": {k: live[k] for k in (
         "ADD(cm)", "ADDS(cm)", "wall_s", "frames_per_s",
-        "replay_frames_per_s")}, "loftr": loftr}), flush=True)
-    if "jax" in sys.modules or "cv2" in sys.modules:
-        raise AssertionError("the port imported jax or cv2")
+        "replay_frames_per_s")}, "loftr": loftr, "ho3d": {
+            "decode": ho3d["decode"], "reader_ms": ho3d["reader_ms"],
+            "run": {k: v for k, v in ho3d["run"].items()
+                    if k != "pipeline_stats"},
+            "refine": {k: v for k, v in ho3d["refine"].items()
+                       if k != "kernel"},
+            "parallel": ho3d["parallel"]}}), flush=True)
+    imported = [m for m in ("jax", "cv2", "PIL", "imageio", "pandas")
+                if m in sys.modules]
+    if imported:
+        raise AssertionError(f"the port imported {imported}")
     # ms, plain_ms, library_ms and the bound: the rows of a real step
     print(json.dumps({"kernels": [{
         "name": "scatter_rows", "route": "cuda",
@@ -2116,7 +2519,8 @@ def main():
         "launches": launches,
         "max_abs_err": max([r["max_abs_err"] for r in scatter.values()]
                            + [real["max_abs_err"], grad_err,
-                              refine["kernel"]["max_abs_err"]]),
+                              refine["kernel"]["max_abs_err"],
+                              ho3d["refine"]["kernel"]["max_abs_err"]]),
         "ms": real["real_step_ms"], "plain_ms": real["plain_ms"],
         "bound_ms": real["bound_ms"], "bound_by": real["bound_by"],
         "library_ms": real["library_ms"],
@@ -2140,11 +2544,15 @@ def main():
         # the rows of one step at the refine config (phase 10)
         "refine": {
             "launches": refine["launches"], "steps": refine["steps"],
-            **{k: refine["kernel"][k] for k in (
-                "max_abs_err", "real_step_ms", "group1_ms", "library_ms",
-                "plain_ms", "zero_fill_ms", "bound_ms", "bound_by",
-                "bound_share", "m_rows", "n_rows", "group", "atomics",
-                "check_by_level")}}}]}),
+            **{k: refine["kernel"][k] for k in KERNEL_KEYS}},
+        # the rows of one step at HO3D's refine config (phase 16)
+        "ho3d_refine": {
+            "launches": ho3d["refine"]["launches"],
+            "steps": ho3d["refine"]["steps"],
+            "online_launches": ho3d["run"]["launches"],
+            "online_nof_steps": ho3d["run"]["nof_steps_total"],
+            "hashed_levels": ho3d["refine"]["hashed_levels"],
+            **{k: ho3d["refine"]["kernel"][k] for k in KERNEL_KEYS}}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,12 @@
-"""The port must run where jax, cv2, PyYAML and sklearn are not installed
-(the GPU machine has none of them): every module of `bundlesdf_tpu_torch`,
-and chip_smoke.py, import with all four blocked, and the port's ORB
-(`matcher/orb.py`, through the matcher's `detect_features`) detects a
-frame and its LoFTR path (`matcher/pairing.py`, `matcher/loftr.py`)
-canonicalizes and matches a pair with them blocked; no source of the port
-imports jax or cv2."""
+"""The port must run where jax, cv2, PyYAML, sklearn, Pillow, imageio and
+pandas are not installed (the GPU machine has none of them): every module
+of `bundlesdf_tpu_torch`, and chip_smoke.py, import with all seven
+blocked; with them blocked the port's ORB (`matcher/orb.py`, through the
+matcher's `detect_features`) detects a frame, its LoFTR path
+(`matcher/pairing.py`, `matcher/loftr.py`) canonicalizes and matches a
+pair, its JPEG decoder decodes a fixture frame, `Ho3dReader` reads an
+HO3D-layout folder, `benchmark_ho3d` writes its CSV and `HeadlessGui` its
+panel; no source of the port imports any of them."""
 import os
 import subprocess
 import sys
@@ -13,7 +15,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
 import importlib, pkgutil, sys
-for blocked in ("jax", "cv2", "yaml", "sklearn"):
+for blocked in ("jax", "cv2", "yaml", "sklearn", "PIL", "imageio",
+                "pandas"):
     sys.modules[blocked] = None    # any import of it now raises ImportError
 sys.path.insert(0, sys.argv[1])
 import bundlesdf_tpu_torch
@@ -50,8 +53,40 @@ tiny = LoftrConfig(initial_dim=8, block_dims=(8, 12, 16), d_coarse=16,
                    d_fine=8, nhead=2, n_coarse_layers=1, match_thr=0.0)
 out = LoftrMatcher(cfg=tiny, device="cpu").predict([cA], [cB])
 assert out[0].ndim == 2 and out[0].shape[1] == 5
-assert not any(k in ("jax", "cv2", "yaml", "sklearn")
-               or k.startswith(("jax.", "bundlesdf_tpu.", "sklearn."))
+# HO3D with Pillow, imageio and pandas blocked: a fixture JPEG decoded to
+# its stored hash, a layout folder read back, its rows written as CSV, a
+# GUI panel written
+import os, tempfile
+sys.path.insert(0, os.path.join(sys.argv[1], "tests"))
+import ho3d_layout
+from bundlesdf_tpu_torch.benchmark_ho3d import write_results_csv
+from bundlesdf_tpu_torch.datasets import Ho3dReader
+from bundlesdf_tpu_torch.gui import HeadlessGui
+from bundlesdf_tpu_torch.utils.jpeg import read_jpeg
+seq = ho3d_layout.orbit_sequence(2)
+img = read_jpeg(ho3d_layout.fixture_jpegs(1)[0])
+assert ho3d_layout.pixel_sha256(img) == ho3d_layout.load_hashes()["0000"]
+with tempfile.TemporaryDirectory() as tmp:
+    video = ho3d_layout.write_ho3d_video(tmp, seq,
+                                         jpegs=ho3d_layout.fixture_jpegs(2))
+    r = Ho3dReader(video)
+    assert np.array_equal(r.get_color(1), read_jpeg(r.color_files[1]))
+    assert np.abs(r.get_depth(0) - seq["depths"][0]).max() < 1e-4
+    assert r.get_occ_mask(1) is None and r.get_mask(0).shape == (480, 640)
+    assert np.abs(r.get_gt_pose(1) - np.linalg.inv(seq["cam_in_obs"][1])
+                  ).max() < 1e-12
+    write_results_csv({"ours/SYN1/ADD(cm)": 0.5}, os.path.join(tmp, "r.csv"))
+    g = HeadlessGui(os.path.join(tmp, "gui"), every_n=1)
+    g.update_frame(r.get_color(0), r.get_mask(0), r.get_gt_pose(0), "0000",
+                   r.K, 1)
+    assert os.path.exists(os.path.join(tmp, "gui", "gui_0000.png"))
+assert {"bundlesdf_tpu_torch.run_ho3d", "bundlesdf_tpu_torch.benchmark_ho3d",
+        "bundlesdf_tpu_torch.parallel.videos", "bundlesdf_tpu_torch.gui",
+        "bundlesdf_tpu_torch.utils.jpeg"} <= set(names)
+assert not any(k in ("jax", "cv2", "yaml", "sklearn", "PIL", "imageio",
+                     "pandas")
+               or k.startswith(("jax.", "bundlesdf_tpu.", "sklearn.", "PIL.",
+                                "imageio.", "pandas."))
                for k in sys.modules if sys.modules[k] is not None)
 print(len(names))
 """
@@ -74,4 +109,6 @@ def test_no_jax_import_in_sources():
                 with open(os.path.join(dirpath, f)) as fh:
                     src = fh.read()
                 assert "import jax" not in src and "from jax" not in src, f
-                assert "import cv2" not in src and "from cv2" not in src, f
+                for mod in ("cv2", "PIL", "imageio", "pandas"):
+                    assert f"import {mod}" not in src \
+                        and f"from {mod}" not in src, (f, mod)

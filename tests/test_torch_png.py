@@ -182,3 +182,32 @@ def test_writer_uses_up_filter_and_rejects_other_types():
     for shape in ((2, 2, 2), (2, 2, 4)):
         with pytest.raises(ValueError):
             encode_png(np.zeros(shape, np.uint8))
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("width", [1, 3, 8, 13])
+def test_read_png_unchanged_equals_cv2(tmp_path, bits, width):
+    """`read_png_unchanged` is cv2.imread(path, IMREAD_UNCHANGED): palette
+    images of 1-8 bits (BGR, BGRA with a tRNS chunk), 1-bit gray, gray +
+    alpha (BGRA), RGB as BGR, and None for a missing file."""
+    from PIL import Image
+    from bundlesdf_tpu_torch.utils.png import read_png_unchanged
+    rng = np.random.default_rng(bits * 100 + width)
+    idx = rng.integers(0, 2 ** bits, (5, width)).astype(np.uint8)
+    pal = Image.fromarray(idx, "P")
+    pal.putpalette(list(rng.integers(0, 256, 3 * 2 ** bits)))
+    files = {"pal": dict(bits=bits), "trns": dict(bits=bits, transparency=1)}
+    for name, kw in files.items():
+        pal.save(str(tmp_path / f"{name}.png"), **kw)
+    Image.fromarray(idx.astype(bool)).save(str(tmp_path / "g1.png"))
+    Image.fromarray(rng.integers(0, 256, (5, width, 2)).astype(np.uint8),
+                    "LA").save(str(tmp_path / "la.png"))
+    write_png(str(tmp_path / "rgb.png"),
+              rng.integers(0, 256, (5, width, 3)).astype(np.uint8))
+    for name in ("pal", "trns", "g1", "la", "rgb"):
+        path = str(tmp_path / f"{name}.png")
+        ref, got = cv2.imread(path, cv2.IMREAD_UNCHANGED), \
+            read_png_unchanged(path)
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        np.testing.assert_array_equal(got, ref, err_msg=name)
+    assert read_png_unchanged(str(tmp_path / "none.png")) is None
