@@ -15,9 +15,21 @@ thread and the tracker then share the card the way the JAX package's
 `nerf_device` shares a second chip. A chunk is ready when a CUDA event
 recorded behind its metrics copy has completed (`utils/transfer.py`).
 
+Placement (`nof_devices`), as in the JAX package: cfg `nerf_device: k`
+puts the runner on card k (the tracker stays on its own device); cfg
+`dp_devices: N > 1`, or an explicit `dp_devices=` device list, trains
+with ray data parallelism over replicas of the field
+(`parallel/dp.py`), which takes precedence. Too few cards for either
+warns and stays on the given device. Under DP `self.field` and
+`self.optimizer` are the master replica: every chunk starts by copying
+them into the other replicas, so whatever changed the master between
+chunks (`train_ba`, `load_weights`, `copy_from`, `add_new_frames`)
+reaches them, and the master stays authoritative for meshes, renders,
+poses and checkpoints.
+
 Not carried from the JAX package: the frame and ray buckets (their padding
-only fed XLA's compile cache and was masked), ray data parallelism
-(`dp_devices`) and the TPU-only `k_runs` overflow telemetry.
+only fed XLA's compile cache and was masked) and the TPU-only `k_runs`
+overflow telemetry.
 """
 from __future__ import annotations
 
@@ -43,6 +55,9 @@ from bundlesdf_tpu_torch.ops.hashgrid import HashGridSpec
 from bundlesdf_tpu_torch.ops.occupancy import (OccupancyGrid,
                                                build_occupancy_grid,
                                                query_occupancy)
+from bundlesdf_tpu_torch.parallel.dp import (make_ray_devices, make_replicas,
+                                             set_master, shard_rays,
+                                             train_steps_dp)
 from bundlesdf_tpu_torch.scene.bounds import voxel_downsample
 from bundlesdf_tpu_torch.utils.common import (BAD_COLOR, BAD_DEPTH,
                                               GLCAM_IN_CVCAM)
@@ -104,6 +119,44 @@ def ray_box_near_far(origins, dirs, bounds):
     return near, far, hit
 
 
+def nof_devices(cfg, device, dp_devices=None, n_visible=None):
+    """(the runner's device, the DP replica devices or None) for a runner
+    built on @device with @cfg's `dp_devices` (a replica count) and
+    `nerf_device` (a card index). @dp_devices: an explicit replica device
+    list (may repeat a card), which overrides both. A count N > 1 takes
+    cards 0..N-1 (on the CPU, N replicas share it) and takes precedence
+    over `nerf_device`; `nerf_device: k` on a card puts the runner on card
+    k. With fewer than N (or k + 1) cards visible -- @n_visible, by
+    default what torch sees; the CPU counts as one device -- it warns
+    and trains on @device alone, as the JAX package does."""
+    device = torch.device(device)
+    if dp_devices is not None:
+        devs = make_ray_devices(dp_devices)
+        if len(devs) < 2:
+            raise ValueError(f"dp_devices={dp_devices}: data parallelism "
+                             f"needs two replicas or more")
+        return devs[0], devs
+    cuda = device.type == "cuda"
+    if n_visible is None:
+        n_visible = torch.cuda.device_count() if cuda else 1
+    n_dp = int(cfg.get("dp_devices", 0) or 0)
+    if n_dp > 1:
+        if not cuda:
+            return device, make_ray_devices(n_dev=n_dp, base=device)
+        if n_visible >= n_dp:
+            return torch.device("cuda", 0), [torch.device("cuda", i)
+                                             for i in range(n_dp)]
+        logging.warning(f"dp_devices={n_dp} but only {n_visible} devices "
+                        "visible; training single-device")
+    nd = int(cfg.get("nerf_device", -1))
+    if nd >= 0:
+        if nd < n_visible:
+            return (torch.device("cuda", nd) if cuda else device), None
+        logging.warning(f"nerf_device={nd} but only {n_visible} devices "
+                        "visible; staying on default")
+    return device, None
+
+
 def dilate_mask(mask, k: int):
     """Binary dilation with a k x k square, equal to `cv2.dilate(mask,
     np.ones((k, k)))` with its default anchor (k // 2, k // 2): for even k
@@ -124,7 +177,9 @@ class NofRunner:
     @device: torch device every tensor of the runner lives on (the card
     unless "cpu").
     @stream: CUDA stream for all of the runner's device work (a new one
-    when None; unused on the CPU).
+    when None or on another device; unused on the CPU).
+    @dp_devices: explicit DP replica devices (`nof_devices`), e.g.
+    ["cuda:0", "cuda:0"] for two replicas sharing one card.
     """
 
     # steps a chunk dispatches between readiness checks and metrics pulls
@@ -133,12 +188,23 @@ class NofRunner:
 
     def __init__(self, cfg, images, depths, masks, normal_maps, poses, K,
                  occ_masks=None, build_octree_pts=None, seed=0,
-                 exp_logger=None, device="cuda", stream=None):
+                 exp_logger=None, device="cuda", stream=None,
+                 dp_devices=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        device = resolve_device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device, self.dp_devices = nof_devices(cfg, device, dp_devices)
         self.stream = None
         if self.device.type == "cuda":
-            self.stream = stream or torch.cuda.Stream(device=self.device)
+            self.stream = (stream if stream is not None
+                           and stream.device == self.device
+                           else torch.cuda.Stream(device=self.device))
+        # ray data parallelism: replicas built at the first chunk (then
+        # `dp_replicas`, replica 0 the master); the store's shards are
+        # rebuilt whenever the store changes
+        self._seed = seed
+        self.dp_replicas = None
         # experiment scalar/artifact sink (ref attaches a sacred _run,
         # nerf_runner.py:569-576,820-822)
         if exp_logger is None:
@@ -250,6 +316,7 @@ class NofRunner:
         float64 host columns (the ray dirs) become float32 on the device,
         as jax's default 32-bit mode does in the JAX package."""
         self.n_rays_valid = int(self._rays_host["depth"].shape[0])
+        self._dp_rays = None
         self.rays = {k: torch.as_tensor(np.ascontiguousarray(
             v.astype(np.float32) if v.dtype == np.float64 else v),
             device=self.device) for k, v in self._rays_host.items()}
@@ -438,13 +505,42 @@ class NofRunner:
         return o if o > 0 else self.SCAN_CHUNK
 
     def _train_chunk(self, chunk: int):
-        """Dispatch @chunk steps; metrics stay on the device."""
-        metrics = train_steps(
-            self.field, self.optimizer, self.rays, self.n_rays_valid,
-            self.c2w, self.occ_grid, self.global_step, chunk, self.rcfg,
-            self.lcfg, self.tcfg, self.N_iters, generator=self.generator)
+        """Dispatch @chunk steps, single-device or data-parallel; metrics
+        stay on the device (under DP, queued behind every replica's
+        work)."""
+        if self.dp_devices is None:
+            metrics = train_steps(
+                self.field, self.optimizer, self.rays, self.n_rays_valid,
+                self.c2w, self.occ_grid, self.global_step, chunk, self.rcfg,
+                self.lcfg, self.tcfg, self.N_iters, generator=self.generator)
+        else:
+            metrics = train_steps_dp(
+                self._synced_replicas(), *self._dp_shards(), self.c2w,
+                self.occ_grid, self.global_step, chunk, self.rcfg, self.lcfg,
+                self.tcfg, self.N_iters)
         self.global_step += chunk
         return metrics
+
+    def _synced_replicas(self):
+        """The DP replicas brought to the master (`self.field`,
+        `self.optimizer`), built at the first call. Call on the runner's
+        stream."""
+        if self.dp_replicas is None:
+            self.dp_replicas = make_replicas(
+                self.field, self.dp_devices, optimizer=self.optimizer,
+                stream=self.stream, tcfg=self.tcfg, seed=self._seed)
+        else:
+            set_master(self.dp_replicas, self.field, self.optimizer,
+                       self.tcfg)
+        return self.dp_replicas
+
+    def _dp_shards(self):
+        """(the ray store's shards, n_valid_local), rebuilt after the
+        store changed."""
+        if self._dp_rays is None:
+            self._dp_rays = shard_rays(self.rays, self.dp_devices,
+                                       n_valid=self.n_rays_valid)
+        return self._dp_rays
 
     def train(self, n_steps=None):
         """Run the remaining training steps in chunks of `scan_chunk` (ref

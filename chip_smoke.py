@@ -48,7 +48,8 @@ Phases, one printed line each (or a few), any failure exits non-zero:
  10. the offline refine: `run_custom.run_one_video_global_nerf` (the
      `--mode global_refine` entry point) on phase 9's artifacts at the
      refine config of `run_custom.py` (16 levels, finest 256, T=2^24,
-     2048 rays x (64 + 256) samples, n_step 2000, mesh_resolution 0.002,
+     2048 rays x (64 + 256) samples, n_step cut from 2000 to 1000,
+     mesh_resolution 0.002,
      texture 512): steps/s, memory, the kernel's launches (= steps) and
      stream, every artifact, the marching and rasterizer paths (native),
      the refined mesh's Chamfer and the optimized poses' ADD beside the
@@ -98,7 +99,19 @@ Phases, one printed line each (or a few), any failure exits non-zero:
      step's rows, timed and checked as in phase 10; `benchmark_ho3d`'s
      rows and results.csv; `run_videos_parallel` with two 10-frame
      videos interleaved on one card against each alone; a `use_gui` run;
- 17. a JSON line of per-kernel results, then the final status line.
+ 17. ray data parallelism (`parallel/dp.py`, `NofRunner(dp_devices=...)`)
+     at phase 5's width with two replicas sharing the card ([cuda:0,
+     cuda:0]): the DP gradient on one fixed 2048-ray batch against the
+     single-device one, f32 and amp; 10 + 100 DP steps against 10 + 100
+     single-device steps (steps/s, host and device ms a step, the
+     gradient reduction's device ms), the replicas bit-equal, the
+     kernel's launches (= steps x replicas, each on its replica's
+     stream) and the kernel against its plain version on one DP step's
+     rows; `add_new_frames` then 20 DP steps; a `BundleSdf` with
+     `nerf_device: 0` over 10 frames (strict sync, NOF batches of 101
+     steps), and `nerf_device: 1` and DP over every card where there is
+     more than one;
+ 18. a JSON line of per-kernel results, then the final status line.
 --profile adds torch.profiler tables of 5 NOF steps, of 5 tracked frames,
 of 20 refine steps, of the online loop's first NOF batch and of one LoFTR
 predict of 8 pairs (f32 and bf16). Needs a CUDA
@@ -508,25 +521,37 @@ def phase_step_vs_cpu(runner):
           f"worst grad err {worst:.2e} of max|g|", flush=True)
 
 
-def make_runner():
-    """NofRunner at the online workload, as bench.py builds it."""
+def runner_inputs(n_frames=5):
+    """The online workload's NofRunner inputs, as bench.py builds them, on
+    the first @n_frames frames of the 480x640 orbit: (cfg, rgbs, depths,
+    masks, poses, K)."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from synthetic import cube_orbit_sequence
     from bundlesdf_tpu_torch.config import default_nerf_config
-    from bundlesdf_tpu_torch.nof.runner import NofRunner, preprocess_frame_data
+    from bundlesdf_tpu_torch.nof.runner import preprocess_frame_data
     from bundlesdf_tpu_torch.utils.common import GLCAM_IN_CVCAM
 
-    seq = cube_orbit_sequence(n_frames=5, H=480, W=640, radius=0.45,
+    seq = cube_orbit_sequence(n_frames=n_frames, H=480, W=640, radius=0.45,
                               obj_size=0.08)
     translation = np.zeros(3)
     sc = 0.9 / 0.6
     cfg = default_nerf_config()
     cfg.update(dict(sc_factor=sc, translation=translation.tolist()))
     poses_gl = seq["cam_in_obs"] @ GLCAM_IN_CVCAM
-    rgbs, depths, masks, normals, poses = preprocess_frame_data(
+    rgbs, depths, masks, _, poses = preprocess_frame_data(
         seq["colors"].copy(), seq["depths"].copy(), seq["masks"].copy(), None,
         poses_gl.copy(), sc, translation)
-    runner = NofRunner(cfg, rgbs, depths, masks, normals, poses, seq["K"])
+    return cfg, rgbs, depths, masks, poses, seq["K"]
+
+
+def make_runner(n_frames=5, inputs=None, **kw):
+    """NofRunner at the online workload (built without `device`: the card
+    is the default) on the first @n_frames of @inputs (`runner_inputs`);
+    @kw go to NofRunner."""
+    from bundlesdf_tpu_torch.nof.runner import NofRunner
+    cfg, rgbs, depths, masks, poses, K = inputs or runner_inputs(n_frames)
+    runner = NofRunner(dict(cfg), rgbs[:n_frames], depths[:n_frames],
+                       masks[:n_frames], None, poses[:n_frames], K, **kw)
     if runner.device.type != "cuda":
         raise AssertionError(f"NofRunner's default device is {runner.device}")
     return runner
@@ -1225,6 +1250,9 @@ def phase_mesh_vs_cpu(runner):
 # ---------------------------------------------------------------------------
 # the offline refine (phase 10)
 # ---------------------------------------------------------------------------
+REFINE_STEPS = 1000      # phase 10's n_step, cut from 2000 to make room
+#                          for phase 17 (the kernel's rows stay one full
+#                          refine step's)
 ARTIFACTS = ("nerf_with_bundletrack_online/mesh_cleaned.obj",
              "nerf_with_bundletrack_online/mesh_real_world.obj",
              "nerf_with_bundletrack_online/optimized_poses.txt",
@@ -1261,7 +1289,8 @@ def phase_refine(seq, fx, out_dir, online, profile=False):
         torch.cuda.reset_peak_memory_stats()
         scatter_rows.launches = 0
         t0 = time.perf_counter()
-        t = run_custom.run_one_video_global_nerf(out_folder=out_dir)
+        t = run_custom.run_one_video_global_nerf(
+            out_folder=out_dir, refine_overrides={"n_step": REFINE_STEPS})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = scatter_rows.launches
@@ -2425,6 +2454,332 @@ def phase_ho3d(seq, fx, online):
     return res
 
 
+# ---------------------------------------------------------------------------
+# ray data parallelism and NOF placement (phase 17)
+# ---------------------------------------------------------------------------
+DP_WARMUP, DP_STEPS, DP_MORE_STEPS = 10, 100, 20
+DP_PROFILE_STEPS = 10
+DP_LOSS_RATIO = 1.35      # tests/test_dp_runner.py's quality bound
+PLACE_FRAMES, PLACE_STEPS = 10, 100
+
+
+def _loss_grads(field, batch, runner, rcfg):
+    """{name: gradient} of the mean loss of @field over @batch, perturb
+    off, on the current stream."""
+    from bundlesdf_tpu_torch.nof.losses import nof_loss
+    from bundlesdf_tpu_torch.nof.render import render_rays
+    trunc = runner.tcfg.trunc
+    out = render_rays(field, rcfg, batch, runner.c2w, runner.occ_grid,
+                      perturb=False, trunc=trunc)
+    loss = nof_loss(out, batch, field, trunc, runner.lcfg)[0]
+    field.zero_grad(set_to_none=True)
+    loss.backward()
+    g = {n: p.grad.clone() for n, p in field.named_parameters()}
+    field.zero_grad(set_to_none=True)
+    return g
+
+
+def phase_dp_grads(runner, devices, amp):
+    """grads_on_batch_dp over @devices against the single-device gradient
+    of one fixed 2048-ray batch, from @runner's weights. Returns (the
+    worst error over its tolerance, whether the replicas' gradients are
+    bit-equal).
+
+    f32 (TF32 off): |dp - single| <= 1e-5 |single| + 1e-6 max|single|,
+    tests/test_dp_runner.py's tolerance (the same terms summed in another
+    order). Under amp each MLP weight and bias gradient is a bf16 output
+    (unit roundoff u = 2^-8) of an f32 sum over the samples: the single
+    device rounds the whole batch's sum S once, DP rounds each shard's
+    partial P_s once and averages them in f32, so |dp - single| <=
+    u (|S| + mean_s |P_s|); the gate takes 2u for the f32 sums' order and
+    the shards' separate forwards, plus the f32 term 1e-6 max|single|.
+    The table and pose gradients are f32 sums in both (within the f32
+    term)."""
+    from bundlesdf_tpu_torch.nof.models import NofField
+    from bundlesdf_tpu_torch.parallel import dp
+    spec, rcfg = runner.spec, runner.rcfg
+    if not amp:
+        spec = replace(spec, grid=replace(spec.grid, table_bf16=False))
+        rcfg = replace(rcfg, compute_bf16=False)
+    field = NofField(spec, device=devices[0])
+    field.load_state_dict(runner.field.state_dict())
+    n = runner.tcfg.n_rand
+    idx = torch.arange(0, runner.n_rays_valid, runner.n_rays_valid // n,
+                       device=devices[0])[:n]
+    batch = {k: v[idx] for k, v in runner.rays.items()}
+    g_sd = _loss_grads(field, batch, runner, rcfg)
+    shards = dp.shard_batch(batch, devices)
+    parts = ([_loss_grads(field, {k: v.to(devices[0]) for k, v in
+                                  sh.items()}, runner, rcfg)
+              for sh in shards] if amp else None)
+    reps = dp.make_replicas(field, devices)
+    g_dp = dp.grads_on_batch_dp(reps, shards, runner.c2w, runner.occ_grid,
+                                runner.tcfg.trunc, rcfg, runner.lcfg)
+    worst, where = 0.0, None
+    for name, a in g_sd.items():
+        b = g_dp[name]
+        atol = 1e-6 * max(1.0, float(a.abs().max()))
+        if amp:
+            u = 2.0 ** -8
+            part = sum(p[name].abs() for p in parts) / len(parts)
+            tol = 2 * u * (a.abs() + part) + atol
+        else:
+            tol = 1e-5 * a.abs() + atol
+        r = float(((b - a).abs() / tol).max())
+        if r > worst:
+            worst, where = r, name
+    same = all(torch.equal(p.grad, q.grad) for rep in reps[1:] for p, q in
+               zip(reps[0].field.parameters(), rep.field.parameters()))
+    print(f"dp grads {'amp' if amp else 'f32'}: {len(devices)} replicas on "
+          f"{[str(d) for d in devices]}, {n} rays, worst |dp - single| / "
+          f"tolerance {worst:.4f} ({where}); replicas' gradients bit-equal "
+          f"{same}", flush=True)
+    return worst, same
+
+
+def _replicas_equal(runner):
+    """The replicas' parameters bit-equal to the master's, as the last
+    chunk left them."""
+    reps = runner.dp_replicas
+    return all(torch.equal(p, q) for rep in reps[1:] for p, q in
+               zip(runner.field.parameters(), rep.field.parameters()))
+
+
+def _train_timed(runner, n_steps):
+    """(metrics, wall seconds) of @n_steps of runner.train, from a device
+    sync to its final host pull."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = runner.train(n_steps=n_steps)
+    torch.cuda.synchronize()
+    return m, time.perf_counter() - t0
+
+
+def _device_ms_a_step(runner, n_steps):
+    from bundlesdf_tpu_torch.utils.profiling import (device_events,
+                                                     device_trace,
+                                                     interval_union_ms,
+                                                     load_trace, trace_path)
+    with tempfile.TemporaryDirectory(prefix="bsdf_dp_") as tmp:
+        with device_trace(tmp, "cuda"):
+            runner.train(n_steps=n_steps)
+        return interval_union_ms(device_events(
+            load_trace(trace_path(tmp)))) / n_steps
+
+
+def _reduction_ms(runner):
+    """Device ms of one gradient reduction (`mean_across`) between the
+    runner's replicas, queued on one stream so CUDA events time it: every
+    parameter's gradient and the step's metrics."""
+    from bundlesdf_tpu_torch.parallel import dp
+    cur = torch.cuda.current_stream()
+    reps = [replace(r, stream=cur) for r in runner.dp_replicas]
+    tensors = [[torch.ones_like(p) for p in r.field.parameters()]
+               + [torch.ones((), device=r.device) for _ in range(12)]
+               for r in reps]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors[0])
+    return _queued_ms(lambda: dp.mean_across(reps, tensors)), nbytes
+
+
+def _record_dp_step(runner):
+    """The (vals, rows, n_rows, group) of each scatter call of one DP step
+    of @runner, one a replica, recorded on their way in."""
+    from bundlesdf_tpu_torch.ops import hashgrid
+    orig, seen = hashgrid.scatter_rows, []
+
+    def recorder(vals, rows, n_rows, group=1):
+        seen.append((vals.clone(), rows.clone(), n_rows, group))
+        return orig(vals, rows, n_rows, group=group)
+
+    hashgrid.scatter_rows = recorder
+    try:
+        runner.train(n_steps=1)
+        torch.cuda.synchronize()
+    finally:
+        hashgrid.scatter_rows = orig
+    return seen
+
+
+def phase_placement(seq, feats, fx, nerf_device):
+    """A BundleSdf with `nerf_device` set, strict sync, over PLACE_FRAMES
+    frames: the runner on that card, the tracker on the default one, the
+    kernel's launches (= NOF steps) on the runner's stream, poses synced
+    back and finite."""
+    from bundlesdf_tpu_torch.config import default_track_config
+    cfg_n = online_nerf_config(default_track_config(), sync_max_delay=0,
+                               n_step=PLACE_STEPS, nerf_device=nerf_device)
+    t0 = time.perf_counter()
+    t, frames, dt, launches, streams = run_video(seq, feats, cfg_n,
+                                                 PLACE_FRAMES)
+    want = torch.device("cuda", nerf_device)
+    steps = t.pipeline_stats.get("nof_steps_total", 0)
+    nerfed = sum(kf.nerfed for kf in t.bundler.keyframes)
+    finite = all(np.isfinite(f.pose_in_model).all() for f in frames)
+    nerf_stream = t.nerf.stream
+    print(f"placement nerf_device={nerf_device}: runner on {t.nerf.device} "
+          f"(stream on {nerf_stream.device}), tracker on {t.device}, "
+          f"{len(frames)} frames in {dt:.3f} s ({len(frames) / dt:.4f} "
+          f"frames/s), {t.pipeline_stats['n_batches']} NOF batches, {steps} "
+          f"steps, scatter_rows launches {launches} on the runner's stream "
+          f"{set(streams) == {nerf_stream.cuda_stream}}, {nerfed} of "
+          f"{len(t.bundler.keyframes)} keyframes nerfed, poses finite "
+          f"{finite}, {time.perf_counter() - t0:.1f} s in all", flush=True)
+    if t.nerf.device != want or nerf_stream.device != want \
+            or t.device.type != "cuda":
+        raise AssertionError(f"placement: runner on {t.nerf.device}, stream "
+                             f"on {nerf_stream.device}, expected {want}")
+    if not (steps > 0 and launches == steps) \
+            or set(streams) != {nerf_stream.cuda_stream}:
+        raise AssertionError(f"placement: {launches} scatter_rows launches "
+                             f"for {steps} NOF steps, streams "
+                             f"{dict(streams)}")
+    if not nerfed or not finite:
+        raise AssertionError(f"placement: {nerfed} keyframes nerfed, poses "
+                             f"finite {finite}")
+    return {"frames_per_s": len(frames) / dt, "nof_steps": steps,
+            "launches": launches}
+
+
+def phase_dp(seq, feats, fx):
+    """Phase 17: ray data parallelism on the card, two replicas sharing
+    it, held against the single device; then NOF placement."""
+    from bundlesdf_tpu_torch.ops.scatter import scatter_rows
+    t_start = time.perf_counter()
+    card = torch.device("cuda", 0)
+    shared = [card, card]
+    n_cards = torch.cuda.device_count()
+    inputs = runner_inputs(7)
+    res = {}
+    dp = make_runner(inputs=inputs, dp_devices=shared)
+    sd = make_runner(inputs=inputs)
+    if dp.dp_devices != shared or sd.dp_devices is not None:
+        raise AssertionError(f"dp runner replicas {dp.dp_devices}, single "
+                             f"{sd.dp_devices}")
+    for amp in (False, True):
+        worst, same = phase_dp_grads(dp, shared, amp)
+        res[f"grad_err_over_tol_{'amp' if amp else 'f32'}"] = worst
+        if not worst <= 1.0 or not same:
+            raise AssertionError(f"dp grads (amp={amp}): worst error "
+                                 f"{worst:.4f} of its tolerance, replicas' "
+                                 f"gradients bit-equal {same}")
+
+    # 10 + 100 steps each: DP with its launches counted, then single
+    streams, undo = count_streams()
+    try:
+        torch.cuda.synchronize()
+        scatter_rows.launches = 0
+        m0, _ = _train_timed(dp, DP_WARMUP)
+        m1, dt_dp = _train_timed(dp, DP_STEPS)
+        launches = scatter_rows.launches
+    finally:
+        undo()
+    s0, _ = _train_timed(sd, DP_WARMUP)
+    s1, dt_sd = _train_timed(sd, DP_STEPS)
+    n_dp = DP_WARMUP + DP_STEPS
+    loss_dp = np.concatenate([m0["loss"], m1["loss"]])
+    loss_sd = np.concatenate([s0["loss"], s1["loss"]])
+    f_dp, f_sd = float(loss_dp[-10:].mean()), float(loss_sd[-10:].mean())
+    equal = _replicas_equal(dp)
+    rep_streams = [r.stream.cuda_stream for r in dp.dp_replicas]
+    dev_dp = _device_ms_a_step(dp, DP_PROFILE_STEPS)
+    dev_sd = _device_ms_a_step(sd, DP_PROFILE_STEPS)
+    red_ms, red_bytes = _reduction_ms(dp)
+    res.update({
+        "replicas": [str(d) for d in shared], "dp_steps": n_dp,
+        "dp_launches": launches,
+        "dp_steps_per_s": DP_STEPS / dt_dp, "sd_steps_per_s": DP_STEPS / dt_sd,
+        "dp_host_ms_a_step": 1e3 * dt_dp / DP_STEPS,
+        "sd_host_ms_a_step": 1e3 * dt_sd / DP_STEPS,
+        "dp_device_ms_a_step": dev_dp, "sd_device_ms_a_step": dev_sd,
+        "reduction_ms": red_ms, "reduction_bytes_a_replica": red_bytes,
+        "loss_last10_dp": f_dp, "loss_last10_sd": f_sd})
+    print(f"dp: {len(shared)} replicas on {res['replicas']}, "
+          f"{dp.n_rays_valid} rays in store, {dp.tcfg.n_rand // 2} rays a "
+          f"replica a step; DP {res['dp_steps_per_s']:.3f} steps/s against "
+          f"single-device {res['sd_steps_per_s']:.3f} "
+          f"({res['dp_steps_per_s'] / res['sd_steps_per_s']:.3f}x), host "
+          f"(wall) ms a step {res['dp_host_ms_a_step']:.3f} / "
+          f"{res['sd_host_ms_a_step']:.3f}, device ms a step (union over "
+          f"streams, {DP_PROFILE_STEPS} steps) {dev_dp:.3f} / {dev_sd:.3f}; "
+          f"gradient reduction {red_ms:.4f} device ms "
+          f"({red_bytes / 1e6:.1f} MB a replica); loss {loss_dp[0]:.5f} -> "
+          f"{f_dp:.5f} (last 10) against {loss_sd[0]:.5f} -> {f_sd:.5f}; "
+          f"replicas bit-equal {equal}; scatter_rows launches {launches} for "
+          f"{n_dp} steps, by stream "
+          f"{ {('replica %d' % rep_streams.index(k) if k in rep_streams else k): v for k, v in streams.items()} }",
+          flush=True)
+    if not (np.isfinite(loss_dp).all() and np.isfinite(loss_sd).all()):
+        raise AssertionError("dp: non-finite loss")
+    if not (f_dp < DP_LOSS_RATIO * f_sd + 1e-3
+            and f_sd < DP_LOSS_RATIO * f_dp + 1e-3):
+        raise AssertionError(f"dp: last-10 loss {f_dp} against single-device "
+                             f"{f_sd}, beyond {DP_LOSS_RATIO}x")
+    if not equal:
+        raise AssertionError("dp: the replicas' parameters differ")
+    default = torch.cuda.default_stream().cuda_stream
+    if launches != n_dp * len(shared) or len(set(rep_streams)) != 2 \
+            or default in rep_streams \
+            or dict(streams) != {k: n_dp for k in rep_streams}:
+        raise AssertionError(f"dp: {launches} scatter_rows launches for "
+                             f"{n_dp} steps x {len(shared)} replicas, by "
+                             f"stream {dict(streams)}, replicas' streams "
+                             f"{rep_streams}")
+
+    # the kernel on one DP step's rows, each replica's call
+    errs = []
+    for i, (vals, rows, n_rows, group) in enumerate(_record_dp_step(dp)):
+        err, _ = _check_scatter(f"dp step replica {i}", vals, rows, n_rows,
+                                group)
+        errs.append(err)
+        print(f"scatter dp step replica {i}: M={rows.shape[0]} "
+              f"C={vals.shape[1]} {vals.dtype} n_rows={n_rows} group={group}"
+              f" max_abs_err {err:.3e} (within the row bound)", flush=True)
+    if len(errs) != len(shared):
+        raise AssertionError(f"dp: one step made {len(errs)} scatter calls")
+    res["dp_step_kernel_max_abs_err"] = max(errs)
+
+    # continual: new keyframes, then more DP steps from the re-synced master
+    cfg, rgbs, depths, masks, poses, K = inputs
+    dp.add_new_frames(rgbs[5:], depths[5:], masks[5:], None, poses)
+    m2, _ = _train_timed(dp, DP_MORE_STEPS)
+    equal2 = _replicas_equal(dp)
+    n_frames = [r.field.spec.n_frames for r in dp.dp_replicas]
+    print(f"dp continual: add_new_frames to {len(dp.images)} frames "
+          f"({dp.n_rays_valid} rays), {DP_MORE_STEPS} more steps, loss "
+          f"{m2['loss'][0]:.5f} -> {m2['loss'][-1]:.5f}, replicas' frames "
+          f"{n_frames}, bit-equal {equal2}", flush=True)
+    if not np.isfinite(m2["loss"]).all() or not equal2 \
+            or n_frames != [len(dp.images)] * len(shared):
+        raise AssertionError("dp continual: non-finite loss or replicas "
+                             "out of sync")
+    del dp, sd
+    torch.cuda.empty_cache()
+
+    if n_cards >= 2:   # every card: printed, not gated
+        cards = [torch.device("cuda", i) for i in range(n_cards)]
+        r = make_runner(inputs=inputs, dp_devices=cards)
+        phase_dp_grads(r, cards, amp=False)
+        _, dt = _train_timed(r, DP_WARMUP)
+        _, dt = _train_timed(r, DP_STEPS)
+        print(f"dp over {n_cards} cards: {DP_STEPS / dt:.3f} steps/s, "
+              f"replicas bit-equal {_replicas_equal(r)}", flush=True)
+        del r
+        torch.cuda.empty_cache()
+    else:
+        print("dp over several cards: not run (one card visible)",
+              flush=True)
+
+    res["placement"] = {0: phase_placement(seq, feats, fx, 0)}
+    if n_cards >= 2:
+        res["placement"][1] = phase_placement(seq, feats, fx, 1)
+    else:
+        print("placement nerf_device=1: not run (one card visible)",
+              flush=True)
+    res["seconds"] = time.perf_counter() - t_start
+    print(f"phase 17: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 # what the kernels line keeps of a real step's measurement
 KERNEL_KEYS = ("max_abs_err", "real_step_ms", "group1_ms", "library_ms",
                "plain_ms", "zero_fill_ms", "bound_ms", "bound_by",
@@ -2498,6 +2853,8 @@ def main():
     t16 = time.perf_counter()
     ho3d = phase_ho3d(seq, fx, threaded)
     print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    dp = phase_dp(seq, feats, fx)
     print(json.dumps({"orb": orb, "live": {k: live[k] for k in (
         "ADD(cm)", "ADDS(cm)", "wall_s", "frames_per_s",
         "replay_frames_per_s")}, "loftr": loftr, "ho3d": {
@@ -2506,7 +2863,7 @@ def main():
                     if k != "pipeline_stats"},
             "refine": {k: v for k, v in ho3d["refine"].items()
                        if k != "kernel"},
-            "parallel": ho3d["parallel"]}}), flush=True)
+            "parallel": ho3d["parallel"]}, "dp": dp}), flush=True)
     imported = [m for m in ("jax", "cv2", "PIL", "imageio", "pandas")
                 if m in sys.modules]
     if imported:
@@ -2519,6 +2876,7 @@ def main():
         "launches": launches,
         "max_abs_err": max([r["max_abs_err"] for r in scatter.values()]
                            + [real["max_abs_err"], grad_err,
+                              dp["dp_step_kernel_max_abs_err"],
                               refine["kernel"]["max_abs_err"],
                               ho3d["refine"]["kernel"]["max_abs_err"]]),
         "ms": real["real_step_ms"], "plain_ms": real["plain_ms"],
@@ -2538,6 +2896,9 @@ def main():
         "bench_pipeline_line_launches": bench["pipeline_launches"],
         "bench_pipeline_line_steps": bench["pipeline"]["nof_steps_trained"],
         "extract_mesh_sdf_err": mesh_err,
+        # phase 17: DP steps x replicas, each on its replica's stream
+        "dp_launches": dp["dp_launches"], "dp_steps": dp["dp_steps"],
+        "dp_replicas": dp["replicas"],
         "uniform": {k: {m: v[m] for m in ("ms", "library_ms", "plain_ms",
                                           "bound_ms")}
                     for k, v in scatter.items()},

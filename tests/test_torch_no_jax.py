@@ -83,6 +83,10 @@ with tempfile.TemporaryDirectory() as tmp:
 assert {"bundlesdf_tpu_torch.run_ho3d", "bundlesdf_tpu_torch.benchmark_ho3d",
         "bundlesdf_tpu_torch.parallel.videos", "bundlesdf_tpu_torch.gui",
         "bundlesdf_tpu_torch.utils.jpeg"} <= set(names)
+# ray data parallelism (parallel/dp.py), imported by the runner as well
+assert "bundlesdf_tpu_torch.parallel.dp" in names
+from bundlesdf_tpu_torch.parallel import dp
+assert dp.make_ray_devices(n_dev=2, base="cpu") == [dp.torch.device("cpu")] * 2
 assert not any(k in ("jax", "cv2", "yaml", "sklearn", "PIL", "imageio",
                      "pandas")
                or k.startswith(("jax.", "bundlesdf_tpu.", "sklearn.", "PIL.",
