@@ -8,9 +8,10 @@ resume, `bundlesdf.py:115-120`).
 
 A copy of `bundlesdf_tpu/config.py`, so config files and dicts load
 unchanged in both packages. Keys that only steer the JAX package's TPU
-machinery (`scatter_*`, `tier_frac`, `k_runs`, `trace_factor`,
-`nerf_device`, `dp_devices`, `assoc_layout`, ...) are accepted and ignored
-by the port.
+machinery (`scatter_*`, `tier_frac`, `k_runs`, `assoc_layout`, ...) are
+accepted and ignored by the port. `nerf_device` and `dp_devices` place the
+NOF runner and its data-parallel replicas (`nof/runner.py::nof_devices`);
+`trace_factor` sets the occupancy trace grid's resolution.
 
 Config files and the keyframe registry are written as JSON (`dump_yaml`)
 that PyYAML's `safe_load` also reads back to the same values, bit for bit:

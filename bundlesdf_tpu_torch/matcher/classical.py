@@ -11,12 +11,20 @@ at once by `orb_match_core`: hamming distance = (nbits - bitsA @ bitsB^T)
 `bundlesdf_tpu_torch/__init__.py`), then the two-way ratio test and the
 mutual check.
 
+`predict(rgbAs, rgbBs)` is the LoFTR-shaped contract of the JAX
+package's `OrbMatcher.predict`: ORB on each whole image (no mask, crop or
+zoom), every pair of the call matched by one `orb_match_core` call, one
+host pull.
+
 Detection is replaceable: `OrbMatcher(detector=fn)` takes `fn(frame) ->
 (uv (n,2) float32, des (n,32) uint8)`, numpy or tensors, already capped at
 `FEAT_CAP`, in full-res pixel coords, in place of `detect_features`; the
-replay runs feed stored features through it.
+replay runs feed stored features through it. `predict` hands it each
+image as a frame with no mask (`fg_mask` None), to be detected whole.
 """
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -24,6 +32,7 @@ import torch
 from bundlesdf_tpu_torch import resolve_device
 from bundlesdf_tpu_torch.matcher import orb
 from bundlesdf_tpu_torch.utils.common import resize_nearest
+from bundlesdf_tpu_torch.utils.transfer import HostPull
 
 
 class OrbMatcher:
@@ -129,18 +138,8 @@ class OrbMatcher:
         if n == 0:
             return (uv, None, None, None)
         des = torch.as_tensor(des, dtype=torch.uint8, device=self.device)
-        # +/-1 expansion, bit order of np.unpackbits (most significant
-        # first), padded to the cap
-        shift = torch.arange(7, -1, -1, device=self.device,
-                             dtype=torch.uint8)
-        bits = ((des[:, :, None] >> shift) & 1).reshape(n, -1)
-        bits_p = torch.zeros((self.FEAT_CAP, bits.shape[1]),
-                             dtype=torch.int8, device=self.device)
-        bits_p[:n] = bits.to(torch.int8) * 2 - 1
-        uv_p = torch.zeros((self.FEAT_CAP, 2), dtype=torch.float32,
-                           device=self.device)
-        uv_p[:n] = uv
-        return (uv, des, bits_p, uv_p)
+        return (uv, des, _pm1_bits(des, self.FEAT_CAP),
+                _padded(uv, self.FEAT_CAP))
 
     def match_frames(self, frame_pairs):
         """@frame_pairs: [(fA, fB)] tracker Frame objects. Returns per-pair
@@ -173,6 +172,79 @@ class OrbMatcher:
             out[i] = np.concatenate([uvA[sel], uvB[j], conf[:, None]],
                                     axis=1).astype(np.float32)
         return out
+
+    # -- the LoFTR-shaped contract ------------------------------------------
+    def _detect_image(self, img):
+        """(uv (n,2) float32, des (n,32) uint8), tensors on the matcher's
+        device, of a whole (H,W[,3]) uint8 image (numpy or tensor): ORB
+        with no mask, crop, zoom or cap, as the JAX package's `predict`
+        detects, or the injected detector on a frame with no mask."""
+        if self.detector is not None:
+            uv, des = self.detector(SimpleNamespace(id=None, color=img,
+                                                    fg_mask=None))
+        else:
+            gray = (img.to(self.device) if isinstance(img, torch.Tensor)
+                    else orb.to_device(img, self.device))
+            if gray.ndim == 3:
+                gray = orb.rgb_to_gray(gray)
+            out = orb.detect_and_compute(gray, None, self.n_features)
+            uv, des = out["pt"], out["des"]
+        return (torch.as_tensor(uv, dtype=torch.float32,
+                                device=self.device).reshape(-1, 2),
+                torch.as_tensor(des, dtype=torch.uint8,
+                                device=self.device).reshape(-1, 32))
+
+    def predict(self, rgbAs, rgbBs):
+        """@rgbAs/@rgbBs: sequences of (H,W[,3]) uint8 images, numpy or
+        tensors (a (B,H,W) uint8 tensor is a sequence of B grey images).
+        Returns per pair a float32 (N,5) [uA,vA,uB,vB,1/(1+d/64)], d the
+        hamming distance, rows in A's keypoint order; a pair with fewer
+        than 2 keypoints on either side gives (0,5). Every pair is matched
+        in one `orb_match_core` call, and the results come back in one
+        host pull."""
+        feats = [(self._detect_image(a), self._detect_image(b))
+                 for a, b in zip(rgbAs, rgbBs)]
+        out = [np.zeros((0, 5), np.float32)] * len(feats)
+        live = [i for i, ((uvA, _), (uvB, _)) in enumerate(feats)
+                if len(uvA) >= 2 and len(uvB) >= 2]
+        if not live:
+            return out
+        F = max(len(feats[i][s][0]) for i in live for s in (0, 1))
+        side = [[feats[i][s] for i in live] for s in (0, 1)]
+        res = orb_match_core(
+            *(torch.stack([_pm1_bits(des, F) for _, des in sd])
+              for sd in side),
+            *(torch.tensor([len(uv) for uv, _ in sd], device=self.device)
+              for sd in side),
+            float(self.ratio), 8 * 32, float(self.ratio_loose),
+            int(self.min_strict))
+        host = HostPull({
+            "j": res["j"], "ok": res["ok"], "dist": res["dist"],
+            "uvA": torch.stack([_padded(uv, F) for uv, _ in side[0]]),
+            "uvB": torch.stack([_padded(uv, F) for uv, _ in side[1]])}).get()
+        for k, i in enumerate(live):
+            sel = np.nonzero(host["ok"][k])[0]
+            conf = 1.0 / (1.0 + host["dist"][k, sel] / 64.0)
+            out[i] = np.concatenate(
+                [host["uvA"][k, sel], host["uvB"][k, host["j"][k, sel]],
+                 conf[:, None]], axis=1).astype(np.float32)
+        return out
+
+
+def _pm1_bits(des, cap):
+    """(cap, 256) int8: the bits of (n,32) uint8 descriptors as +/-1, in
+    np.unpackbits order (most significant first), rows from n on 0."""
+    shift = torch.arange(7, -1, -1, device=des.device, dtype=torch.uint8)
+    bits = ((des[:, :, None] >> shift) & 1).reshape(len(des), -1)
+    return _padded(bits.to(torch.int8) * 2 - 1, cap)
+
+
+def _padded(t, cap):
+    """@t (n, ...) with zero rows appended up to @cap rows."""
+    out = torch.zeros((cap,) + tuple(t.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    out[:len(t)] = t
+    return out
 
 
 def orb_match_core(bitsA, bitsB, nA, nB, ratio, nbits, ratio_loose=None,

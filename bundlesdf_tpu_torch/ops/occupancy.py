@@ -27,6 +27,10 @@ class OccupancyGrid:
     trace: torch.Tensor          # (tr,tr,tr) uint8 -- +1-dilated trace grid
     trace_res: int
 
+    @property
+    def voxel_size(self) -> float:
+        return 2.0 / self.res
+
 
 def build_occupancy_grid(pts, res: int, dilate_radius: int = 1,
                          trace_factor: int = 2, device=None) -> OccupancyGrid:

@@ -95,6 +95,20 @@ def draw_occupied_samples(state, n_samples: int, perturb: bool = True,
     return torch.where(state["no_hit"][:, None], z_uniform, z)
 
 
+def sample_occupied_steps(t0, t1, occ, n_samples: int, perturb: bool = True,
+                          generator=None, t_cap=None):
+    """Stratified samples distributed over the union of occupied ray steps
+    (ref `sampleRaysUniformOccupiedVoxels`, mycuda/common.cu:41): the
+    segment tables of `occupied_sampler_state`, then one
+    `draw_occupied_samples`. @t0,t1: (N,S) step bounds from
+    `ray_trace_occupancy`; @occ: (N,S) bool; @t_cap: optional (N,) upper
+    clamp. Rays with no occupied step fall back to the full step range.
+    Returns (N, n_samples) t values."""
+    state = occupied_sampler_state(t0, t1, occ, t_cap=t_cap)
+    return draw_occupied_samples(state, n_samples, perturb=perturb,
+                                 generator=generator)
+
+
 def sample_pdf(bins, weights, n_samples: int, det: bool = False,
                generator=None):
     """Hierarchical importance sampling by inverse-CDF

@@ -111,7 +111,17 @@ Phases, one printed line each (or a few), any failure exits non-zero:
      `nerf_device: 0` over 10 frames (strict sync, NOF batches of 101
      steps), and `nerf_device: 1` and DP over every card where there is
      more than one;
- 18. a JSON line of per-kernel results, then the final status line.
+ 18. the last public names (no new kernel): `OrbMatcher.predict` on 8
+     pairs of the orbit canonicalized to 400x400 by
+     `matcher/pairing.py::process_image_pairs`, as `find_corres`'s
+     predict branch does, card = CPU (the rows as sets, confidences
+     within 1e-6), rows a pair, pairs/s over 5 calls and device ms a
+     pair; `sample_occupied_steps` on the (t0, t1, occ, t_cap) that one
+     training step of phase 5's runner hands the occupied sampler (2048
+     rays), card = CPU within 1e-5 relative at `perturb=False`, and
+     bit-equal to `occupied_sampler_state` + `draw_occupied_samples`
+     under one seeded CUDA generator when perturbed;
+ 19. a JSON line of per-kernel results, then the final status line.
 --profile adds torch.profiler tables of 5 NOF steps, of 5 tracked frames,
 of 20 refine steps, of the online loop's first NOF batch and of one LoFTR
 predict of 8 pairs (f32 and bf16). Needs a CUDA
@@ -211,13 +221,18 @@ def _index_add(vals, rows, n_rows):
                                device=vals.device).index_add_(0, idx, src)
 
 
-def phase_card():
+def _smi():
+    """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_card():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(_smi(), flush=True)
 
 
 def phase_build():
@@ -357,6 +372,27 @@ def record_step(runner):
         raise AssertionError(f"one training step made {len(seen)} scatter "
                              f"calls, expected 1")
     return seen[0]
+
+
+def record_sampler_inputs(runner):
+    """(t0, t1, occ, t_cap, n_samples) that one real training step of
+    @runner hands the occupied sampler, recorded on their way in."""
+    from bundlesdf_tpu_torch.nof import render
+    orig, seen = render.occupied_sampler_state, []
+
+    def recorder(t0, t1, occ, t_cap=None):
+        seen.append(tuple(x.detach().clone() for x in (t0, t1, occ, t_cap)))
+        return orig(t0, t1, occ, t_cap=t_cap)
+
+    render.occupied_sampler_state = recorder
+    try:
+        runner.train(n_steps=1)
+    finally:
+        render.occupied_sampler_state = orig
+    if len(seen) != 1:
+        raise AssertionError(f"one training step made {len(seen)} occupied "
+                             f"sampler calls, expected 1")
+    return seen[0] + (runner.rcfg.n_samples,)
 
 
 def run_atomics(rows, n_rows, group, samples):
@@ -2780,6 +2816,116 @@ def phase_dp(seq, feats, fx):
     return res
 
 
+PREDICT_PAIRS = ((5, 0), (12, 5), (20, 12), (29, 20), (2, 0), (9, 7),
+                 (17, 15), (26, 24))       # (A, B) frame ids, phase 18
+PREDICT_CALLS = 5
+SAMPLER_RTOL = 1e-5
+
+
+def _rows_by_match(rows):
+    """{(uA, vA, uB, vB) rounded to 1e-3: conf} of predict's rows."""
+    return {tuple(np.round(r[:4].astype(np.float64), 3)): float(r[4])
+            for r in rows}
+
+
+def phase_predict(seq, device="cuda"):
+    """Phase 18(a): `OrbMatcher.predict` (the LoFTR-shaped contract, whole
+    images) on the card against the CPU, then timed."""
+    from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
+    from bundlesdf_tpu_torch.matcher.pairing import process_image_pairs
+    from bundlesdf_tpu_torch.utils.profiling import (device_events,
+                                                     device_trace,
+                                                     interval_union_ms,
+                                                     load_trace, trace_path)
+    frames = _loftr_frames(seq, {i for p in PREDICT_PAIRS for i in p})
+    pairs = [(frames[a], frames[b]) for a, b in PREDICT_PAIRS]
+    cA, cB, _ = process_image_pairs(pairs, LOFTR_SIZE, device)
+    card = OrbMatcher(device=device)
+    got = card.predict(cA, cB)
+    ref = OrbMatcher(device="cpu").predict(cA.cpu(), cB.cpu())
+    rows, conf_err, same = [], 0.0, True
+    for g, r in zip(got, ref):
+        dg, dr = _rows_by_match(g), _rows_by_match(r)
+        same &= dg.keys() == dr.keys() and len(g) == len(dg)
+        conf_err = max([conf_err] + [abs(dg[k] - dr[k])
+                                     for k in dg.keys() & dr.keys()])
+        rows.append(len(g))
+    walls = []
+    for _ in range(PREDICT_CALLS):
+        _sync(device)
+        t0 = time.perf_counter()
+        card.predict(cA, cB)                # ends in a host pull
+        walls.append(time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory(prefix="bsdf_predict_") as tmp:
+        with device_trace(tmp, device):
+            card.predict(cA, cB)
+        dev_ms = interval_union_ms(device_events(
+            load_trace(trace_path(tmp)))) / len(pairs)
+    wall = float(np.median(walls))
+    res = {"pairs": len(pairs), "size": LOFTR_SIZE, "rows": rows,
+           "card_eq_cpu": bool(same), "conf_err": conf_err,
+           "pairs_per_s": len(pairs) / wall,
+           "wall_ms_per_pair": 1e3 * wall / len(pairs),
+           "device_ms_per_pair": dev_ms}
+    print(f"predict: OrbMatcher.predict on {len(pairs)} pairs of the "
+          f"480x640 orbit {PREDICT_PAIRS} canonicalized to "
+          f"{LOFTR_SIZE}x{LOFTR_SIZE}: rows a pair {rows}; card = CPU as "
+          f"sets {same}, conf max err {conf_err:.3g}; "
+          f"{res['pairs_per_s']:.3f} pairs/s (median of {PREDICT_CALLS} "
+          f"calls, {res['wall_ms_per_pair']:.3f} ms a pair), device "
+          f"{dev_ms:.4f} ms a pair (profiler union) | {_smi()}", flush=True)
+    if not same or conf_err > 1e-6 or sum(rows) < 100:
+        raise AssertionError(f"predict: card = CPU {same}, conf err "
+                             f"{conf_err}, rows {rows}")
+    return res
+
+
+def phase_sampler(inputs):
+    """Phase 18(b): `sample_occupied_steps` on a real step's trace, on the
+    card against the CPU, and against the two calls it wraps."""
+    from bundlesdf_tpu_torch.ops.sampling import (draw_occupied_samples,
+                                                  linspace01,
+                                                  occupied_sampler_state,
+                                                  sample_occupied_steps)
+    t0, t1, occ, cap, n = inputs
+    z_g = sample_occupied_steps(t0, t1, occ, n, perturb=False, t_cap=cap)
+    host = [x.cpu() for x in (t0, t1, occ, cap)]
+    z_c = sample_occupied_steps(*host[:3], n, perturb=False, t_cap=host[3])
+    rel = (z_g.cpu() - z_c).abs() / z_c.abs().clamp_min(1e-6)
+    bad = rel > SAMPLER_RTOL
+    # a sample within rounding of a segment boundary may land on the other
+    # side of it on the card, whose cumsum adds in another order
+    st = occupied_sampler_state(*host[:3], t_cap=host[3])
+    u = linspace01(n)[None, :] * st["total"]
+    cum, tol = st["cum"].contiguous(), 1e-6 * st["total"]
+    edge = (torch.searchsorted(cum, u - tol, right=True)
+            != torch.searchsorted(cum, u + tol, right=True))
+    gens = [torch.Generator(t0.device).manual_seed(7) for _ in range(2)]
+    z1 = sample_occupied_steps(t0, t1, occ, n, generator=gens[0], t_cap=cap)
+    z2 = draw_occupied_samples(occupied_sampler_state(t0, t1, occ, t_cap=cap),
+                               n, generator=gens[1])
+    composed = bool(torch.equal(z1, z2))
+    ms = _cuda_ms(lambda: sample_occupied_steps(t0, t1, occ, n, t_cap=cap))
+    res = {"rays": t0.shape[0], "steps": t0.shape[1], "n_samples": n,
+           "no_hit_rays": int(st["no_hit"].sum()),
+           "max_rel_err": float(rel[~bad].max()) if (~bad).any() else 0.0,
+           "over_tol": int(bad.sum()), "over_tol_at_edge": int(
+               (bad & edge).sum()), "perturbed_eq_composition": composed,
+           "ms": ms}
+    print(f"sampler: sample_occupied_steps on one online step's trace "
+          f"({res['rays']} rays x {res['steps']} steps, {n} samples, "
+          f"{res['no_hit_rays']} rays with no occupied step, t_cap set): "
+          f"card = CPU at perturb=False, max rel err {res['max_rel_err']:.3g}"
+          f" (tolerance {SAMPLER_RTOL}; {res['over_tol']} samples over it, "
+          f"{res['over_tol_at_edge']} of them at a segment boundary); "
+          f"perturbed, bit-equal to the two calls under one seeded "
+          f"generator {composed}; {ms:.4f} ms a call on the card | {_smi()}",
+          flush=True)
+    if (bad & ~edge).any() or not composed or not torch.isfinite(z1).all():
+        raise AssertionError(f"sampler: {res}")
+    return res
+
+
 # what the kernels line keeps of a real step's measurement
 KERNEL_KEYS = ("max_abs_err", "real_step_ms", "group1_ms", "library_ms",
                "plain_ms", "zero_fill_ms", "bound_ms", "bound_by",
@@ -2802,6 +2948,7 @@ def main():
     grad_err = phase_hashgrid_grad(runner.spec.grid)
     phase_step_vs_cpu(runner)
     launches = phase_main(runner)
+    sampler_in = record_sampler_inputs(runner)
     if "--profile" in sys.argv[1:]:
         phase_profile(runner)
     del runner
@@ -2855,6 +3002,10 @@ def main():
     print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
     torch.cuda.empty_cache()
     dp = phase_dp(seq, feats, fx)
+    torch.cuda.empty_cache()
+    t18 = time.perf_counter()
+    last = {"predict": phase_predict(seq), "sampler": phase_sampler(sampler_in)}
+    print(f"phase 18: {time.perf_counter() - t18:.1f} s", flush=True)
     print(json.dumps({"orb": orb, "live": {k: live[k] for k in (
         "ADD(cm)", "ADDS(cm)", "wall_s", "frames_per_s",
         "replay_frames_per_s")}, "loftr": loftr, "ho3d": {
@@ -2863,7 +3014,7 @@ def main():
                     if k != "pipeline_stats"},
             "refine": {k: v for k, v in ho3d["refine"].items()
                        if k != "kernel"},
-            "parallel": ho3d["parallel"]}, "dp": dp}), flush=True)
+            "parallel": ho3d["parallel"]}, "dp": dp, **last}), flush=True)
     imported = [m for m in ("jax", "cv2", "PIL", "imageio", "pandas")
                 if m in sys.modules]
     if imported:

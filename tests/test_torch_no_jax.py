@@ -1,12 +1,14 @@
-"""The port must run where jax, cv2, PyYAML, sklearn, Pillow, imageio and
-pandas are not installed (the GPU machine has none of them): every module
-of `bundlesdf_tpu_torch`, and chip_smoke.py, import with all seven
-blocked; with them blocked the port's ORB (`matcher/orb.py`, through the
-matcher's `detect_features`) detects a frame, its LoFTR path
-(`matcher/pairing.py`, `matcher/loftr.py`) canonicalizes and matches a
-pair, its JPEG decoder decodes a fixture frame, `Ho3dReader` reads an
-HO3D-layout folder, `benchmark_ho3d` writes its CSV and `HeadlessGui` its
-panel; no source of the port imports any of them."""
+"""The port must run where jax, cv2, PyYAML, sklearn, Pillow, imageio,
+pandas and dearpygui are not installed (the GPU machine has none of
+them): every module of `bundlesdf_tpu_torch`, and chip_smoke.py, import
+with all eight blocked; with them blocked the port's ORB (`matcher/orb.py`,
+through the matcher's `detect_features`) detects a frame and
+`OrbMatcher.predict` matches a pair, its LoFTR path (`matcher/pairing.py`,
+`matcher/loftr.py`) canonicalizes and matches a pair, its JPEG decoder
+decodes a fixture frame, `Ho3dReader` reads an HO3D-layout folder,
+`benchmark_ho3d` writes its CSV, the GUI factory gives `HeadlessGui` and
+that writes its panel; no source of the port imports any of them but
+dearpygui, which `gui.py` imports only if it is there."""
 import os
 import subprocess
 import sys
@@ -16,7 +18,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = r"""
 import importlib, pkgutil, sys
 for blocked in ("jax", "cv2", "yaml", "sklearn", "PIL", "imageio",
-                "pandas"):
+                "pandas", "dearpygui"):
     sys.modules[blocked] = None    # any import of it now raises ImportError
 sys.path.insert(0, sys.argv[1])
 import bundlesdf_tpu_torch
@@ -40,6 +42,11 @@ mask[40:200, 60:260] = 1
 uv, des = OrbMatcher(device="cpu").detect_features(
     SimpleNamespace(color=color, fg_mask=mask))
 assert len(uv) == len(des) > 500, len(uv)
+# the LoFTR-shaped contract on whole images: a pair and its shifted copy
+shifted = np.roll(color, (3, 5), axis=(0, 1))
+rows = OrbMatcher(device="cpu").predict([color], [shifted])[0]
+assert rows.dtype == np.float32 and rows.shape[1] == 5 and len(rows) > 100
+assert np.median(rows[:, 2] - rows[:, 0]) == 5
 # LoFTR with cv2 blocked: a pair canonicalized and matched by a tiny net
 assert {"bundlesdf_tpu_torch.matcher.loftr",
         "bundlesdf_tpu_torch.matcher.pairing",
@@ -61,7 +68,9 @@ sys.path.insert(0, os.path.join(sys.argv[1], "tests"))
 import ho3d_layout
 from bundlesdf_tpu_torch.benchmark_ho3d import write_results_csv
 from bundlesdf_tpu_torch.datasets import Ho3dReader
+from bundlesdf_tpu_torch import gui
 from bundlesdf_tpu_torch.gui import HeadlessGui
+assert not gui.HAS_DPG
 from bundlesdf_tpu_torch.utils.jpeg import read_jpeg
 seq = ho3d_layout.orbit_sequence(2)
 img = read_jpeg(ho3d_layout.fixture_jpegs(1)[0])
@@ -76,7 +85,8 @@ with tempfile.TemporaryDirectory() as tmp:
     assert np.abs(r.get_gt_pose(1) - np.linalg.inv(seq["cam_in_obs"][1])
                   ).max() < 1e-12
     write_results_csv({"ours/SYN1/ADD(cm)": 0.5}, os.path.join(tmp, "r.csv"))
-    g = HeadlessGui(os.path.join(tmp, "gui"), every_n=1)
+    g = gui.BundleSdfGui(os.path.join(tmp, "gui"), every_n=1)
+    assert type(g) is HeadlessGui
     g.update_frame(r.get_color(0), r.get_mask(0), r.get_gt_pose(0), "0000",
                    r.K, 1)
     assert os.path.exists(os.path.join(tmp, "gui", "gui_0000.png"))
@@ -88,9 +98,9 @@ assert "bundlesdf_tpu_torch.parallel.dp" in names
 from bundlesdf_tpu_torch.parallel import dp
 assert dp.make_ray_devices(n_dev=2, base="cpu") == [dp.torch.device("cpu")] * 2
 assert not any(k in ("jax", "cv2", "yaml", "sklearn", "PIL", "imageio",
-                     "pandas")
+                     "pandas", "dearpygui")
                or k.startswith(("jax.", "bundlesdf_tpu.", "sklearn.", "PIL.",
-                                "imageio.", "pandas."))
+                                "imageio.", "pandas.", "dearpygui."))
                for k in sys.modules if sys.modules[k] is not None)
 print(len(names))
 """

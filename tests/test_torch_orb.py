@@ -15,7 +15,14 @@ against cv2, which the JAX package detects with, stage by stage and whole:
   from cv2's overlap by >= 90 %;
 - a 10-frame tracker-only run of the port with its own detector against
   the JAX package on cv2's features: no FAIL frame, and mean ADD <=
-  max(2 x JAX, JAX + 1 mm).
+  max(2 x JAX, JAX + 1 mm);
+- `OrbMatcher.predict` (whole images, the LoFTR-shaped contract) against
+  the JAX package's on four 120x160 orbit pairs and two pairs
+  canonicalized to 400x400: with cv2's keypoints injected, the same rows
+  in the same order, confidences within 1e-6, at min_strict 0, 5 and 40
+  (40 sends a pair to the loose ratio); with the port's own ORB, >= 90 %
+  of the matches shared; the empty and < 2 keypoint cases; tensor input
+  against list input.
 """
 from types import SimpleNamespace
 
@@ -244,3 +251,102 @@ def test_short_tracker_run_against_jax(tmp_path):
         adds[name] = np.mean([add_err(p, g, model)
                               for p, g in zip(pred, gt)])
     assert adds["port"] <= max(2 * adds["jax"], adds["jax"] + 1e-3), adds
+
+
+def _cv2_whole(frame):
+    """cv2's ORB on a whole image, as the JAX `OrbMatcher.predict`
+    detects: (uv, des) for `OrbMatcher(detector=...)`."""
+    img = np.asarray(frame.color)
+    gray = cv2.cvtColor(img, cv2.COLOR_RGB2GRAY) if img.ndim == 3 else img
+    kps, des = cv2.ORB_create(nfeatures=2000,
+                              fastThreshold=5).detectAndCompute(gray, None)
+    if des is None:
+        return np.zeros((0, 2), np.float32), np.zeros((0, 32), np.uint8)
+    return np.array([k.pt for k in kps], np.float32).reshape(-1, 2), des
+
+
+@pytest.fixture(scope="module")
+def predict_pairs():
+    """(A images, B images): four 120x160 RGB orbit pairs, then two pairs
+    canonicalized to 400x400 grey as `find_corres`'s predict branch does
+    (numpy lists; the canonical crops also as (2,400,400) tensors)."""
+    from bundlesdf_tpu_torch.matcher.pairing import process_image_pairs
+    seq = cube_orbit_sequence(n_frames=6, H=120, W=160, radius=0.45,
+                              obj_size=0.08, full_angle=2 * np.pi * 6 / 120,
+                              noise=0.002, seed=0)
+    fr = [SimpleNamespace(id=i, color=seq["colors"][i], H=120, W=160,
+                          fg_mask=seq["masks"][i],
+                          pose_in_model=seq["cam_in_obs"][i])
+          for i in range(6)]
+    cA, cB, _ = process_image_pairs([(fr[4], fr[0]), (fr[5], fr[2])], 400,
+                                    "cpu")
+    A = [seq["colors"][i] for i in (1, 3, 5, 4)] + list(cA.numpy())
+    B = [seq["colors"][i] for i in (0, 2, 0, 1)] + list(cB.numpy())
+    return A, B, (cA, cB)
+
+
+def _rows(out):
+    return [{tuple(np.round(r[:4], 3)) for r in o} for o in out]
+
+
+@pytest.mark.parametrize("min_strict", [0, 5, 40])
+def test_predict_equals_jax_on_cv2_keypoints(predict_pairs, min_strict):
+    from bundlesdf_tpu.matcher.classical import OrbMatcher as JaxOrbMatcher
+    A, B, _ = predict_pairs
+    ref = JaxOrbMatcher(min_strict=min_strict).predict(A, B)
+    got = OrbMatcher(device="cpu", detector=_cv2_whole,
+                     min_strict=min_strict).predict(A, B)
+    assert len(got) == len(ref) == 6
+    for a, b in zip(got, ref):
+        assert a.dtype == np.float32 and a.shape[1] == 5 and len(b) > 20
+        np.testing.assert_array_equal(np.round(a[:, :4], 3),
+                                      np.round(b[:, :4], 3))
+        np.testing.assert_allclose(a[:, 4], b[:, 4], rtol=0, atol=1e-6)
+    if min_strict == 40:      # the loose ratio took over on some pair
+        strict = JaxOrbMatcher().predict(A, B)
+        assert any(len(a) > len(s) for a, s in zip(got, strict))
+
+
+def test_predict_own_orb_overlaps_jax(predict_pairs):
+    from bundlesdf_tpu.matcher.classical import OrbMatcher as JaxOrbMatcher
+    A, B, _ = predict_pairs
+    ours = _rows(OrbMatcher(device="cpu").predict(A, B))
+    ref = _rows(JaxOrbMatcher().predict(A, B))
+    for sa, sb in zip(ours, ref):
+        assert len(sb) > 20
+        assert len(sa & sb) >= 0.9 * max(len(sa), len(sb)), (len(sa),
+                                                              len(sb))
+
+
+def test_predict_edge_cases_and_inputs(predict_pairs):
+    from bundlesdf_tpu.matcher.classical import OrbMatcher as JaxOrbMatcher
+    A, B, (cA, cB) = predict_pairs
+    m = OrbMatcher(device="cpu")
+    assert m.predict([], []) == []
+    flat = np.full((120, 160, 3), 90, np.uint8)         # no keypoint
+    out = m.predict([flat, A[0]], [B[0], flat])
+    assert [o.shape for o in out] == [(0, 5), (0, 5)]
+    assert all(o.dtype == np.float32 for o in out)
+    assert [len(o) for o in JaxOrbMatcher().predict([flat], [B[0]])] == [0]
+
+    def one_keypoint(frame):
+        uv, des = _cv2_whole(frame)
+        return uv[:1], des[:1]
+    one = OrbMatcher(device="cpu", detector=one_keypoint).predict(A[:1],
+                                                                  B[:1])
+    assert one[0].shape == (0, 5)
+    kp, des = cv2.ORB_create(2000, fastThreshold=5).detectAndCompute(
+        cv2.cvtColor(A[0], cv2.COLOR_RGB2GRAY), None)
+    kB, dB = cv2.ORB_create(2000, fastThreshold=5).detectAndCompute(
+        cv2.cvtColor(B[0], cv2.COLOR_RGB2GRAY), None)
+    assert JaxOrbMatcher()._match_feats(kp[:1], des[:1], kB, dB).shape \
+        == (0, 5)
+    # a (B,H,W) grey tensor, a list of RGB tensors: as the numpy lists
+    for got, ref in ((m.predict(cA, cB), m.predict(A[4:], B[4:])),
+                     (m.predict([torch.from_numpy(a) for a in A[:2]],
+                                [torch.from_numpy(b) for b in B[:2]]),
+                      m.predict(A[:2], B[:2]))):
+        assert len(got) == len(ref)
+        for a, b in zip(got, ref):
+            assert len(a) > 20
+            np.testing.assert_array_equal(a, b)

@@ -96,6 +96,68 @@ def test_occupied_samples_match_jax(grids):
                                rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("capped", [False, True])
+def test_sample_occupied_steps_matches_jax(grids, capped):
+    """The one-call sampler, deterministic, against JAX's, rays with no
+    occupied step (uniform over the whole step range) included."""
+    j, _ = grids
+    o, d = _rays(seed=9)
+    tr = jocc.ray_trace_occupancy(j, jnp.asarray(o), jnp.asarray(d), n_steps=32)
+    t0, t1, occ = (np.array(tr[k]) for k in ("t0", "t1", "occ"))
+    occ[:5] = False
+    assert occ.any(1).sum() > 20
+    cap = (np.random.default_rng(10).uniform(0.5, 3.0, len(o)).astype(
+        np.float32) if capped else None)
+    z_j = jsmp.sample_occupied_steps(
+        None, jnp.asarray(t0), jnp.asarray(t1), jnp.asarray(occ), 24,
+        perturb=False, t_cap=None if cap is None else jnp.asarray(cap))
+    z_t = tsmp.sample_occupied_steps(
+        torch.from_numpy(t0), torch.from_numpy(t1), torch.from_numpy(occ), 24,
+        perturb=False, t_cap=None if cap is None else torch.from_numpy(cap))
+    assert z_t.shape == (len(o), 24)
+    np.testing.assert_allclose(z_t.numpy(), np.asarray(z_j), rtol=1e-6,
+                               atol=1e-6)
+    if cap is not None:
+        t0, t1 = np.minimum(t0, cap[:, None]), np.minimum(t1, cap[:, None])
+    np.testing.assert_allclose(
+        z_t[:5].numpy(), t0[:5, :1] + tsmp.linspace01(24).numpy()
+        * (t1[:5, -1:] - t0[:5, :1]), rtol=1e-6)
+
+
+def test_sample_occupied_steps_is_the_composition(grids):
+    """Perturbed, under one seeded generator: bit-equal to the state plus
+    one draw, and so is the gradient through the segment tables."""
+    _, t = grids
+    o, d = _rays(seed=11)
+    tr = tocc.ray_trace_occupancy(t, torch.from_numpy(o), torch.from_numpy(d),
+                                  n_steps=32)
+    cap = torch.from_numpy(np.random.default_rng(12).uniform(
+        0.5, 3.0, len(o)).astype(np.float32))
+    out = []
+    for wrapper in (True, False):
+        t0 = tr["t0"].clone().requires_grad_(True)
+        g = torch.Generator().manual_seed(5)
+        if wrapper:
+            z = tsmp.sample_occupied_steps(t0, tr["t1"], tr["occ"], 24,
+                                           generator=g, t_cap=cap)
+        else:
+            st = tsmp.occupied_sampler_state(t0, tr["t1"], tr["occ"],
+                                             t_cap=cap)
+            z = tsmp.draw_occupied_samples(st, 24, generator=g)
+        (z * torch.linspace(-1, 1, 24)).sum().backward()
+        out.append((z.detach(), t0.grad))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1]) and out[0][1].abs().sum() > 0
+
+
+@pytest.mark.parametrize("res", [8, 32, 64])
+def test_voxel_size_matches_jax(res):
+    pts = np.zeros((1, 3))
+    j = jocc.build_occupancy_grid(pts, res=res)
+    t = tocc.build_occupancy_grid(pts, res=res)
+    assert t.voxel_size == j.voxel_size == 2.0 / res
+
+
 @pytest.mark.parametrize("n", [1, 20, 64, 128])
 def test_uniform_samples_and_linspace_match_jax(n):
     near = np.random.default_rng(6).uniform(0.2, 1.0, (32, 1)).astype(np.float32)
