@@ -56,6 +56,7 @@ from bundlesdf_tpu_torch.tracker.frame import Frame, FrameStatus
 from bundlesdf_tpu_torch.utils.common import (GLCAM_IN_CVCAM,
                                               geodesic_distance_np,
                                               resize_nearest)
+from bundlesdf_tpu_torch.utils import profiling
 from bundlesdf_tpu_torch.utils.png import read_png, write_png
 
 
@@ -134,13 +135,15 @@ class BundleSdf:
         self.sc_factor = None
         self.mesh = None
         # tracker||NOF stall anatomy: wall seconds by phase, accumulated
-        # across the run. Keys: nerf_prep (host batch prep: scene bounds +
-        # ray store + runner init), nerf_dispatch (start_training),
-        # nerf_poll (chunk feed from the tracker thread), nerf_sync
-        # (blocking finish_training / worker join), nerf_post (pose
-        # sync-back + optional mesh extract); nerf_worker_s (the worker
-        # thread's whole batches) and nof_steps_total appear with the first
-        # batch. n_* are event counts.
+        # across the run, each the seconds of its span (`utils/profiling`).
+        # Keys: nerf_prep (span nof.prep: host batch prep, scene bounds +
+        # ray store + runner init), nerf_dispatch (nof.dispatch:
+        # start_training), nerf_poll (nof.poll: chunk feed from the tracker
+        # thread), nerf_sync (nof.sync: blocking finish_training / worker
+        # join), nerf_post (nof.post: pose sync-back + optional mesh
+        # extract); nerf_worker_s (the worker thread's whole batches) and
+        # nof_steps_total appear with the first batch. n_* are event
+        # counts.
         self.pipeline_stats = {
             "nerf_prep_s": 0.0, "nerf_dispatch_s": 0.0, "nerf_poll_s": 0.0,
             "nerf_sync_s": 0.0, "nerf_post_s": 0.0,
@@ -168,20 +171,17 @@ class BundleSdf:
     # ------------------------------------------------------------------
     @contextlib.contextmanager
     def _stage(self, name: str):
-        """Accumulate wall seconds into the current frame's stage dict
-        (unless stage_timing is off), and mark the span `stage:<name>` for
-        torch.profiler, which then sums the device time of the kernels
-        the stage launched."""
-        with torch.profiler.record_function(f"stage:{name}"):
-            if not self._stage_timing or self._cur_stages is None:
+        """The span @name (`utils/profiling.py`), whose seconds also go
+        into the current frame's stage dict unless stage_timing is off."""
+        timed = self._stage_timing and self._cur_stages is not None
+        sp = profiling.span(name)
+        try:
+            with sp:
                 yield
-                return
-            t0 = time.perf_counter()
-            try:
-                yield
-            finally:
+        finally:
+            if timed:
                 self._cur_stages[name] = (self._cur_stages.get(name, 0.0)
-                                          + time.perf_counter() - t0)
+                                          + sp.seconds)
 
     # ------------------------------------------------------------------
     def make_frame(self, color, depth, K, id_str, mask=None, occ_mask=None,
@@ -517,9 +517,9 @@ class BundleSdf:
         if self._async_host and self._nerf_thread is not None:
             done = not self._nerf_thread.is_alive()
         elif self.nerf is not None and self.nerf.training_in_flight:
-            t0 = time.perf_counter()
-            done = self.nerf.poll_training()
-            self.pipeline_stats["nerf_poll_s"] += time.perf_counter() - t0
+            with profiling.span("nof.poll") as sp:
+                done = self.nerf.poll_training()
+            self.pipeline_stats["nerf_poll_s"] += sp.seconds
         else:
             done = None
         if done is not None and (done or behind >= max_ahead):
@@ -591,7 +591,19 @@ class BundleSdf:
     def _nerf_batch_body(self, batch, cam_in_obs, first):
         """Batch prep + first chunk (ref run_nerf child body). Runs on the
         worker thread when async_host, else inline on the tracker."""
-        t_prep = time.perf_counter()
+        with profiling.span("nof.prep") as sp:
+            pcd_all = self._nerf_batch_prep(batch, cam_in_obs, first)
+        self.pipeline_stats["nerf_prep_s"] += sp.seconds
+        self._nerf_gs0 = self.nerf.global_step
+        with profiling.span("nof.dispatch") as sp:
+            self.nerf.start_training()
+        self.pipeline_stats["nerf_dispatch_s"] += sp.seconds
+        self.prev_pcd_real_scale = voxel_downsample(pcd_all, 0.01)
+
+    def _nerf_batch_prep(self, batch, cam_in_obs, first):
+        """Scene bounds, then a new runner or `add_new_frames` (ref
+        run_nerf bundlesdf.py:96-210); returns the scene cloud in real
+        scale."""
         rgbs = np.array([f["rgb"] for f in batch])
         depths = np.array([f["depth"] for f in batch])
         masks = np.array([f["mask"] for f in batch])
@@ -650,12 +662,7 @@ class BundleSdf:
             self.nerf.add_new_frames(rgbs_p, depths_p, masks_p, normals_p,
                                      poses_all, occ_masks=occ_masks,
                                      new_pcd=pcd_norm, reuse_weights=False)
-        t_disp = time.perf_counter()
-        self.pipeline_stats["nerf_prep_s"] += t_disp - t_prep
-        self._nerf_gs0 = self.nerf.global_step
-        self.nerf.start_training()
-        self.pipeline_stats["nerf_dispatch_s"] += time.perf_counter() - t_disp
-        self.prev_pcd_real_scale = voxel_downsample(pcd_all, 0.01)
+        return pcd_all
 
     def _nerf_busy(self) -> bool:
         """True while a NOF batch is in flight OR has landed but its pose
@@ -667,22 +674,23 @@ class BundleSdf:
     def _finish_nerf_batch(self, final=False):
         """Block until the in-flight NOF batch completes, then sync the
         optimized poses back into the keyframes."""
-        t0 = time.perf_counter()
-        if self._nerf_thread is not None:
-            self._nerf_thread.join()
-            self._nerf_thread = None
-            if self._nerf_worker_err is not None:
-                err, self._nerf_worker_err = self._nerf_worker_err, None
-                raise err
-        elif self.nerf is not None and self.nerf.training_in_flight:
-            self.nerf.finish_training()
-            self._count_steps()
-        else:
+        if self._nerf_thread is None and not (
+                self.nerf is not None and self.nerf.training_in_flight):
             return
-        t1 = time.perf_counter()
-        self.pipeline_stats["nerf_sync_s"] += t1 - t0
-        self._sync_poses_from_nerf(final=final)
-        self.pipeline_stats["nerf_post_s"] += time.perf_counter() - t1
+        with profiling.span("nof.sync") as sp:
+            if self._nerf_thread is not None:
+                self._nerf_thread.join()
+                self._nerf_thread = None
+                if self._nerf_worker_err is not None:
+                    err, self._nerf_worker_err = self._nerf_worker_err, None
+                    raise err
+            else:
+                self.nerf.finish_training()
+                self._count_steps()
+        self.pipeline_stats["nerf_sync_s"] += sp.seconds
+        with profiling.span("nof.post") as sp:
+            self._sync_poses_from_nerf(final=final)
+        self.pipeline_stats["nerf_post_s"] += sp.seconds
 
     def _sync_poses_from_nerf(self, final=False):
         """Overwrite keyframe poses with NOF-optimized poses and mark them

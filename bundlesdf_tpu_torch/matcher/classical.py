@@ -32,6 +32,7 @@ import torch
 from bundlesdf_tpu_torch import resolve_device
 from bundlesdf_tpu_torch.matcher import orb
 from bundlesdf_tpu_torch.utils.common import resize_nearest
+from bundlesdf_tpu_torch.utils.profiling import span
 from bundlesdf_tpu_torch.utils.transfer import HostPull
 
 
@@ -155,17 +156,22 @@ class OrbMatcher:
         nbits = feats[live[0]][0][2].shape[1]
         bA = torch.stack([feats[i][0][2] for i in live])
         bB = torch.stack([feats[i][1][2] for i in live])
-        nA = torch.tensor([len(feats[i][0][0]) for i in live],
-                          device=self.device)
-        nB = torch.tensor([len(feats[i][1][0]) for i in live],
-                          device=self.device)
-        res = orb_match_core(bA, bB, nA, nB, float(self.ratio), nbits,
-                             float(self.ratio_loose), int(self.min_strict))
-        j_best, accept, dist = (res["j"].cpu().numpy(), res["ok"].cpu().numpy(),
-                                res["dist"].cpu().numpy())
+        # the counts' uploads and the results' pulls wait for the card
+        with span("pull.track.orb_match"):
+            nA = torch.tensor([len(feats[i][0][0]) for i in live],
+                              device=self.device)
+            nB = torch.tensor([len(feats[i][1][0]) for i in live],
+                              device=self.device)
+            res = orb_match_core(bA, bB, nA, nB, float(self.ratio), nbits,
+                                 float(self.ratio_loose),
+                                 int(self.min_strict))
+            j_best, accept, dist = (res["j"].cpu().numpy(),
+                                    res["ok"].cpu().numpy(),
+                                    res["dist"].cpu().numpy())
         for k, i in enumerate(live):
-            uvA, uvB = (feats[i][0][0].cpu().numpy(),
-                        feats[i][1][0].cpu().numpy())
+            with span("pull.track.orb_match"):
+                uvA, uvB = (feats[i][0][0].cpu().numpy(),
+                            feats[i][1][0].cpu().numpy())
             sel = np.nonzero(accept[k, :len(uvA)])[0]
             j = j_best[k, sel]
             conf = 1.0 / (1.0 + dist[k, sel] / 64.0)
@@ -221,7 +227,8 @@ class OrbMatcher:
         host = HostPull({
             "j": res["j"], "ok": res["ok"], "dist": res["dist"],
             "uvA": torch.stack([_padded(uv, F) for uv, _ in side[0]]),
-            "uvB": torch.stack([_padded(uv, F) for uv, _ in side[1]])}).get()
+            "uvB": torch.stack([_padded(uv, F) for uv, _ in side[1]])},
+            "track.orb_predict").get()
         for k, i in enumerate(live):
             sel = np.nonzero(host["ok"][k])[0]
             conf = 1.0 / (1.0 + host["dist"][k, sel] / 64.0)

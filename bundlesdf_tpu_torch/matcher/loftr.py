@@ -591,7 +591,7 @@ class LoftrMatcher:
                 results.update({f"{k}{c}": res[k]
                                 for k in ("uv0", "uv1", "conf")})
                 chunks.append(chunk)
-        host = HostPull(results).get()
+        host = HostPull(results, "loftr").get()
         out = [None] * n
         for c, chunk in enumerate(chunks):
             uv0, uv1, conf = host[f"uv0{c}"], host[f"uv1{c}"], host[f"conf{c}"]

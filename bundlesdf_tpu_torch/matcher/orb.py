@@ -35,6 +35,8 @@ import math
 import numpy as np
 import torch
 
+from bundlesdf_tpu_torch.utils.profiling import span
+
 N_LEVELS = 8
 SCALE_FACTOR = 1.2
 EDGE_THRESHOLD = 31
@@ -546,7 +548,8 @@ def detect_and_compute(gray, mask=None, n_features=2000, fast_threshold=5,
     keep = _retain_best_fast(keep, scores, [2 * q for q in quota])
     resp = harris_responses(stack, H, W)
     keep = _retain_best_harris(keep, resp, quota)
-    lev, ys, xs = keep.nonzero(as_tuple=True)          # the one host sync
+    with span("pull.track.orb_detect"):
+        lev, ys, xs = keep.nonzero(as_tuple=True)      # the one host sync
     angle = ic_angles(stack, lev, ys, xs)
     scale = _constant("scales", dev)[lev]
     out = {"pt": torch.stack([xs.to(torch.float32) * scale,

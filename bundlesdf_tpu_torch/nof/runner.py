@@ -62,6 +62,7 @@ from bundlesdf_tpu_torch.scene.bounds import voxel_downsample
 from bundlesdf_tpu_torch.utils.common import (BAD_COLOR, BAD_DEPTH,
                                               GLCAM_IN_CVCAM)
 from bundlesdf_tpu_torch.utils.png import write_png
+from bundlesdf_tpu_torch.utils.profiling import span, spanned
 from bundlesdf_tpu_torch.utils.se3 import se3_exp_np
 from bundlesdf_tpu_torch.utils.transfer import HostPull
 
@@ -323,6 +324,7 @@ class NofRunner:
 
     # -- dataset -----------------------------------------------------------
 
+    @spanned("nof.occupancy")
     def _build_occupancy(self) -> OccupancyGrid:
         """Occupancy grid from the (normalized) scene cloud with the
         reference's voxel-size and dilation math (`build_octree`
@@ -401,6 +403,7 @@ class NofRunner:
         rec = {k: v[hit] for k, v in rec.items()}
         return rec
 
+    @spanned("nof.ray_store")
     def _build_ray_store(self, frame_range=None):
         if frame_range is None:
             frame_range = range(len(self.images))
@@ -559,8 +562,9 @@ class NofRunner:
                 self._interval_hooks(prev_step, metrics)
             names = sorted(all_metrics[0])
             # one device->host pull for all metrics
-            host = torch.stack([torch.cat([m[k] for m in all_metrics])
-                                for k in names]).cpu().numpy()
+            with span("nof.pull"):
+                host = torch.stack([torch.cat([m[k] for m in all_metrics])
+                                    for k in names]).cpu().numpy()
         return {k: host[i] for i, k in enumerate(names)}
 
     # -- asynchronous training (tracker || NOF overlap) --------------------
@@ -600,7 +604,8 @@ class NofRunner:
                         and not self._chunk_ready(st["pulls"][-1])):
                     break
                 chunk = min(self.scan_chunk, st["remaining"])
-                st["pulls"].append(HostPull(self._train_chunk(chunk)))
+                st["pulls"].append(HostPull(self._train_chunk(chunk),
+                                            "nof.chunk"))
                 st["remaining"] -= chunk
         return (st["remaining"] <= 0
                 and (not st["pulls"] or self._chunk_ready(st["pulls"][-1])))
@@ -632,6 +637,7 @@ class NofRunner:
         return every and every < 10 ** 8 \
             and (prev // every) != (self.global_step // every)
 
+    @spanned("nof.hooks")
     def _interval_hooks(self, prev_step, metrics):
         """Ref nerf_runner.py:744-852: loss print, checkpoint, debug render,
         mesh and pose dumps. @metrics: tensors or host arrays."""

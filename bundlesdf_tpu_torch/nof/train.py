@@ -17,6 +17,7 @@ import torch
 
 from bundlesdf_tpu_torch.nof.losses import LossConfig, nof_loss
 from bundlesdf_tpu_torch.nof.render import RenderConfig, render_rays
+from bundlesdf_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -67,17 +68,23 @@ def train_step(field, optimizer, batch: dict, step: int, c2w, occ_grid,
                rcfg: RenderConfig, lcfg: LossConfig, tcfg: TrainConfig,
                n_iters: int, generator=None, perturb: bool = True):
     """One training step on an injected ray @batch at global @step.
-    Returns the detached metrics dict (scalar tensors on the device)."""
+    Returns the detached metrics dict (scalar tensors on the device).
+    Spans: `nof.render`, `nof.loss`, `nof.backward` (the gradients' reset
+    and the backward pass), `nof.adam` (lr and Adam's step)."""
     trunc = truncation_at(step, tcfg, n_iters)
-    out = render_rays(field, rcfg, batch, c2w, occ_grid, generator=generator,
-                      perturb=perturb, trunc=trunc)
-    loss, metrics = nof_loss(out, batch, field, trunc, lcfg)
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    f = lr_factor_at(step, tcfg, n_iters)
-    for group in optimizer.param_groups:
-        group["lr"] = group["base_lr"] * f
-    optimizer.step()
+    with span("nof.render"):
+        out = render_rays(field, rcfg, batch, c2w, occ_grid,
+                          generator=generator, perturb=perturb, trunc=trunc)
+    with span("nof.loss"):
+        loss, metrics = nof_loss(out, batch, field, trunc, lcfg)
+    with span("nof.backward"):
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    with span("nof.adam"):
+        f = lr_factor_at(step, tcfg, n_iters)
+        for group in optimizer.param_groups:
+            group["lr"] = group["base_lr"] * f
+        optimizer.step()
     return {k: v.detach() for k, v in metrics.items()}
 
 
@@ -88,14 +95,17 @@ def train_steps(field, optimizer, rays_store: dict, n_valid: int, c2w,
     """Run @n_steps training steps; each draws `tcfg.n_rand` ray indices
     uniformly in [0, n_valid) from @generator and gathers its batch from
     @rays_store (dict of device tensors). Returns metrics stacked (n_steps,)
-    on the device: no host sync inside the loop."""
+    on the device: no host sync inside the loop. Each step, draw and
+    gather included, is the span `nof.step`."""
     dev = rays_store["depth"].device
     history = []
     for i in range(n_steps):
-        idx = torch.randint(0, n_valid, (tcfg.n_rand,), generator=generator,
-                            device=dev)
-        batch = {k: v[idx] for k, v in rays_store.items()}
-        history.append(train_step(field, optimizer, batch, start_step + i,
-                                  c2w, occ_grid, rcfg, lcfg, tcfg, n_iters,
-                                  generator=generator, perturb=True))
+        with span("nof.step"):
+            idx = torch.randint(0, n_valid, (tcfg.n_rand,),
+                                generator=generator, device=dev)
+            batch = {k: v[idx] for k, v in rays_store.items()}
+            history.append(train_step(field, optimizer, batch,
+                                      start_step + i, c2w, occ_grid, rcfg,
+                                      lcfg, tcfg, n_iters,
+                                      generator=generator, perturb=True))
     return {k: torch.stack([m[k] for m in history]) for k in history[0]}

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from bundlesdf_tpu_torch.ops.scatter import scatter_rows
+from bundlesdf_tpu_torch.utils.profiling import span
 
 # NGP spatial hash primes (must match gridencoder.cu for weight ports).
 _PRIMES = (1, 2654435761, 805459861)
@@ -122,14 +123,22 @@ def hashgrid_corners(x, spec: HashGridSpec):
     (N,L,8) float32 (differentiable in x)."""
     layout = spec.layout()
     dev = x.device
+    all_dense = all(dense for _, dense, _, _ in layout)
+    # the layout's constants: host->device copies, each of which waits for
+    # the stream's queued work
+    with span("pull.nof.hashgrid"):
+        res_i = torch.tensor([r for r, _, _, _ in layout],
+                             dtype=torch.int64, device=dev)
+        corners = torch.as_tensor(_CORNERS, device=dev)           # (8,3)
+        dense = None if all_dense else torch.tensor(
+            [d for _, d, _, _ in layout], device=dev)
+        offs = torch.tensor([o for _, _, _, o in layout], dtype=torch.int64,
+                            device=dev)
     x01 = torch.clamp((x.float() + 1.0) * 0.5, 0.0, 1.0)
-    res_i = torch.tensor([r for r, _, _, _ in layout], dtype=torch.int64,
-                         device=dev)
     xl = x01[:, None, :] * res_i.float()[None, :, None]          # (N,L,3)
     x0 = torch.minimum(torch.floor(xl).long().clamp(min=0),
                        (res_i - 1)[None, :, None])
     w = xl - x0.float()                                           # (N,L,3)
-    corners = torch.as_tensor(_CORNERS, device=dev)               # (8,3)
     cb = corners.bool()[None, None]                               # (1,1,8,3)
     f = torch.where(cb, w[:, :, None, :], 1.0 - w[:, :, None, :])  # (N,L,8,3)
     # the product written out: torch.prod's backward is a cumprod scan
@@ -139,16 +148,13 @@ def hashgrid_corners(x, spec: HashGridSpec):
     c = x0[:, :, None, :] + corners.long()[None, None]            # (N,L,8,3)
     S = (res_i + 1)[None, :, None]
     rows = (c[..., 0] * S + c[..., 1]) * S + c[..., 2]            # dense ids
-    if not all(dense for _, dense, _, _ in layout):
+    if not all_dense:
         # int64 products keep the low 32 bits of the reference's uint32
         # arithmetic exact; the mask reproduces its wraparound
         h = ((c[..., 0] * _PRIMES[0]) ^ (c[..., 1] * _PRIMES[1])
              ^ (c[..., 2] * _PRIMES[2])) & 0xFFFFFFFF
-        dense = torch.tensor([d for _, d, _, _ in layout], device=dev)
         rows = torch.where(dense[None, :, None], rows,
                            h & (spec.table_size - 1))
-    offs = torch.tensor([o for _, _, _, o in layout], dtype=torch.int64,
-                        device=dev)
     return (rows + offs[None, :, None]).to(torch.int32), wc
 
 

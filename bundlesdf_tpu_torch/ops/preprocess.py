@@ -19,6 +19,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from bundlesdf_tpu_torch.utils.profiling import span
+
 _VALID_MIN = 0.1
 
 
@@ -77,10 +79,11 @@ def bilateral_filter_depth(depth, radius=2, sigma_d=2.0, sigma_r=100000.0,
 
     inv_2sd2 = 1.0 / (2.0 * sigma_d * sigma_d)
     inv_2sr2 = 1.0 / (2.0 * sigma_r * sigma_r)
-    d2 = torch.tensor([float(dy * dy + dx * dx)
-                       for dy in range(-radius, radius + 1)
-                       for dx in range(-radius, radius + 1)],
-                      device=depth.device)[:, None, None]
+    with span("pull.track.preprocess"):  # a host->device copy: a wait
+        d2 = torch.tensor([float(dy * dy + dx * dx)
+                           for dy in range(-radius, radius + 1)
+                           for dx in range(-radius, radius + 1)],
+                          device=depth.device)[:, None, None]
     ok = ok & (torch.abs(nb - mean_depth) < 0.01)
     w = torch.exp(-d2 * inv_2sd2 - (depth - nb) ** 2 * inv_2sr2)
     w = torch.where(ok, w, 0.0)

@@ -32,6 +32,7 @@ import shutil
 import torch
 
 from bundlesdf_tpu_torch.utils.build import build_so
+from bundlesdf_tpu_torch.utils.profiling import count
 
 _SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "scatter_rows.cu")
@@ -124,10 +125,7 @@ def scatter_rows(vals, rows, n_rows: int, group: int = 1):
     if err != 0:
         raise RuntimeError(f"scatter_rows kernel launch failed: CUDA error "
                            f"{err}")
-    scatter_rows.launches += 1
+    # the launches, read from `profiling.snapshot()` (chip_smoke.py checks
+    # that the training step went through the kernel)
+    count("scatter_rows.launches")
     return out
-
-
-# kernel launches since the last reset (chip_smoke.py checks that the
-# training step went through the kernel)
-scatter_rows.launches = 0

@@ -4,7 +4,9 @@ biggest cluster -> center + scale to [-1,1] with sc_factor *= 0.9.
 
 Copy of `bundlesdf_tpu/scene/bounds.py` (numpy + cKDTree), except that
 `dbscan_labels` takes the place of sklearn's `DBSCAN`: the machine with the
-card has no sklearn. It gives sklearn's labels (see its docstring).
+card has no sklearn. It gives sklearn's labels (see its docstring). Each
+call of `compute_scene_bounds`, `compute_scene_bounds_frame` and
+`find_biggest_cluster` is the span `scene.bounds` (`utils/profiling.py`).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from scipy.sparse.csgraph import connected_components
 from scipy.spatial import cKDTree
 
 from bundlesdf_tpu_torch.utils.common import GLCAM_IN_CVCAM, depth2xyzmap
+from bundlesdf_tpu_torch.utils.profiling import spanned
 
 
 def voxel_downsample(pts, voxel, colors=None):
@@ -95,6 +98,7 @@ def dbscan_labels(pts, eps, min_samples):
     return labels
 
 
+@spanned("scene.bounds")
 def find_biggest_cluster(pts, eps=0.06, min_samples=1):
     """Ref tool.py:18-25."""
     labels = dbscan_labels(pts, eps, min_samples)
@@ -109,7 +113,8 @@ def compute_translation_scales(pts, max_dim=2, cluster=True, eps=0.06,
     """Ref tool.py:28-39: center on the biggest cluster's bbox, scale the
     longest side to max_dim with a 0.9 safety margin."""
     if cluster:
-        pts, keep = find_biggest_cluster(pts, eps, min_samples)
+        # unspanned: compute_scene_bounds' span holds this call
+        pts, keep = find_biggest_cluster.__wrapped__(pts, eps, min_samples)
     else:
         keep = np.ones(len(pts), bool)
     max_xyz = pts.max(axis=0)
@@ -119,6 +124,7 @@ def compute_translation_scales(pts, max_dim=2, cluster=True, eps=0.06,
     return -center, sc_factor, keep
 
 
+@spanned("scene.bounds")
 def compute_scene_bounds_frame(depth, mask, glcam_in_world, K):
     """Single-frame worker (ref compute_scene_bounds_worker tool.py:42-64):
     masked depth cloud -> voxel downsample -> outlier removal -> world frame.
@@ -137,6 +143,7 @@ def compute_scene_bounds_frame(depth, mask, glcam_in_world, K):
     return pts @ cam_in_world[:3, :3].T + cam_in_world[:3, 3]
 
 
+@spanned("scene.bounds")
 def compute_scene_bounds(rgbs, depths, masks, glcam_in_worlds, K,
                          use_mask=True, cluster=True, translation_cvcam=None,
                          sc_factor=None, eps=0.06, min_samples=1):

@@ -32,6 +32,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from bundlesdf_tpu_torch.utils.profiling import span
 from bundlesdf_tpu_torch.utils.se3 import hat, se3_exp
 
 
@@ -73,9 +74,9 @@ def _inv(T):
 
 def _cos_deg(deg, device):
     """cos of @deg degrees, computed in float32 as the JAX package does."""
-    return torch.cos(torch.deg2rad(torch.tensor(float(deg),
-                                                dtype=torch.float32,
-                                                device=device)))
+    with span("pull.track.ba_const"):  # a host->device copy: a wait
+        t = torch.tensor(float(deg), dtype=torch.float32, device=device)
+    return torch.cos(torch.deg2rad(t))
 
 
 def _to_int(x):
@@ -86,7 +87,9 @@ def _to_int(x):
 def _pose_update(poses, delta, flags):
     """poses <- exp(delta) @ poses, zeroing pinned frames' deltas."""
     delta = delta.reshape(-1, 6) * flags[:, None]
-    return se3_exp(delta) @ poses
+    with span("pull.track.ba_pose"):  # se3_exp uploads a constant: a wait
+        step = se3_exp(delta)
+    return step @ poses
 
 
 def _huber(res0, delta):

@@ -30,6 +30,7 @@ from bundlesdf_tpu_torch.tracker.pool import (FramePool, covis_core,
 from bundlesdf_tpu_torch.utils.se3 import (kabsch_np,
                                            rot_geodesic_ignore_cam_z_np)
 from bundlesdf_tpu_torch.utils.png import write_png
+from bundlesdf_tpu_torch.utils.profiling import span
 from bundlesdf_tpu_torch.utils.transfer import HostPull
 from bundlesdf_tpu_torch.utils.viz import draw_line
 
@@ -70,8 +71,11 @@ class Bundler:
         return self.pool
 
     def _t(self, a, dtype=None):
-        """Host array -> tensor on the bundler's device."""
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+        """Host array -> tensor on the bundler's device (a host->device
+        copy, which waits for the stream's queued work)."""
+        with span("pull.track.upload"):
+            return torch.as_tensor(np.asarray(a), dtype=dtype,
+                                   device=self.device)
 
     def _slot(self, frame: Frame) -> int:
         """Pool slot of a frame; frames constructed standalone (tests /
@@ -117,7 +121,7 @@ class Bundler:
         thres = float(np.cos(np.deg2rad(self.cfg["visible_angle"])))
         out = covis_core(pool.xyzs_h, pool.nrms_h, pool.valids_h,
                          self._t(slots), self._t(Ts), thres)
-        return HostPull({"c": out}).get()["c"]
+        return HostPull({"c": out}, "track.covis").get()["c"]
 
     # ------------------------------------------------------------------
     # correspondence construction + RANSAC, fused (ref rawMatchesToCorres
@@ -195,7 +199,7 @@ class Bundler:
             self._seed_ctr, cfg["inlier_dist"],
             float(np.cos(np.deg2rad(cfg["inlier_normal_angle"]))),
             n_trials=int(cfg["max_iter"]))
-        res = HostPull(res).get()  # one wait for every pair's outputs
+        res = HostPull(res, "track.ransac").get()  # one wait for all pairs
 
         for i, (fA, fB, _) in enumerate(live):
             uvA_h, uvB_h, c = hostm[i]
@@ -345,7 +349,7 @@ class Bundler:
             ratio_loose=float(getattr(matcher, "ratio_loose", 0.0)),
             min_strict=int(getattr(matcher, "min_strict", 0)),
             m_cap=min(M, F), n_trials=int(cfg["max_iter"]),
-            k_pull=k_pull, **gate_args)).get()
+            k_pull=k_pull, **gate_args), "track.orb_ransac").get()
 
         if sel_args:
             fA0, fB0 = frame_pairs[live[0]]
@@ -1071,7 +1075,8 @@ class Bundler:
             if not last:  # intermediate scales feed the next scale's assoc
                 poses = out
         # the copies back start now and land while the host moves on
-        return {"out": HostPull({"poses": out[0], "covis": out[1]}),
+        return {"out": HostPull({"poses": out[0], "covis": out[1]},
+                                "track.ba"),
                 "frames": list(frames), "idx_of": idx_of,
                 "kfs": list(kfs), "new_frame": self.new_frame}
 

@@ -70,7 +70,7 @@ class Frame:
             self.slot, n_valid = pool.insert_preprocessed(
                 self.id, depth, self.K, self.fg_mask,
                 cfg["depth_processing"])
-            self._n_valid_pull = HostPull({"n": n_valid})
+            self._n_valid_pull = HostPull({"n": n_valid}, "track.frame")
             self.depth_dev = self.xyz_dev = self.normal_dev = None
             if float(cfg.get("bundle", {}).get("w_dense_color", 0)
                      or 0) > 0:
@@ -110,7 +110,7 @@ class Frame:
              self._normal_host) = self.pool.host_maps(self.id)
         else:
             h = HostPull({"d": self.depth_dev, "x": self.xyz_dev,
-                          "n": self.normal_dev}).get()
+                          "n": self.normal_dev}, "track.frame_maps").get()
             self._depth_host, self._xyz_host, self._normal_host = \
                 h["d"], h["x"], h["n"]
 
@@ -186,7 +186,7 @@ class Frame:
         mask = np.asarray(mask) > 0
         if self.pooled:
             self._n_valid_pull = HostPull(
-                {"n": self.pool.apply_mask(self.id, mask)})
+                {"n": self.pool.apply_mask(self.id, mask)}, "track.frame")
         else:
             keep = torch.as_tensor(mask, device=self.device)
             self.depth_dev = torch.where(keep, self.depth_dev, 0.0)

@@ -33,6 +33,7 @@ from bundlesdf_tpu_torch import resolve_device
 from bundlesdf_tpu_torch.matcher.classical import orb_match_core
 from bundlesdf_tpu_torch.ops.preprocess import preprocess_depth_frame
 from bundlesdf_tpu_torch.tracker.ransac import ransac_pose
+from bundlesdf_tpu_torch.utils.profiling import span
 from bundlesdf_tpu_torch.utils.se3 import kabsch
 from bundlesdf_tpu_torch.utils.transfer import HostPull
 
@@ -384,11 +385,13 @@ class FramePool:
         valid-point count)."""
         slot = self._alloc(frame_id)
         dev = self.device
+        with span("pull.track.pool_upload"):  # host->device copies: waits
+            inputs = (torch.as_tensor(np.asarray(depth, np.float32),
+                                      device=dev),
+                      torch.as_tensor(np.asarray(K, np.float32), device=dev),
+                      torch.as_tensor(np.asarray(mask), device=dev))
         n_valid = preprocess_into_pool(
-            *self.tensors, slot,
-            torch.as_tensor(np.asarray(depth, np.float32), device=dev),
-            torch.as_tensor(np.asarray(K, np.float32), device=dev),
-            torch.as_tensor(np.asarray(mask), device=dev),
+            *self.tensors, slot, *inputs,
             erode_radius=int(dp_cfg["erode"]["radius"]),
             erode_diff=dp_cfg["erode"]["diff"],
             erode_ratio=dp_cfg["erode"]["ratio"],
@@ -444,5 +447,5 @@ class FramePool:
         """One frame's (depth, xyz, normal) maps as host numpy arrays."""
         slot = self.slot_of[frame_id]
         h = HostPull({"d": self.depths[slot], "x": self.xyzs[slot],
-                      "n": self.nrms[slot]}).get()
+                      "n": self.nrms[slot]}, "track.pool").get()
         return h["d"], h["x"], h["n"]

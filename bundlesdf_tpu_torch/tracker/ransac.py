@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from bundlesdf_tpu_torch.utils.profiling import span
 from bundlesdf_tpu_torch.utils.se3 import kabsch
 
 
@@ -64,7 +65,8 @@ def ransac_pose(ptsA, ptsB, normalsA, normalsB, conf, valid, dist_thres,
         g = torch.gather(a, 1, idx3.reshape(P, -1, 1).expand(-1, -1, 3))
         return g.reshape(P, -1, 3, 3)
 
-    poses = kabsch(take(ptsA), take(ptsB))                    # (P,T,4,4)
+    with span("pull.track.kabsch"):  # the batched SVD waits for the card
+        poses = kabsch(take(ptsA), take(ptsB))                # (P,T,4,4)
 
     # inlier eval: (P,T,M)
     R = poses[..., :3, :3]

@@ -10,7 +10,8 @@ into place: a process never opens a half-written library, and two builders
 of one source end with one file. A failed build raises RuntimeError with
 the compiler's output. The scatter kernel (`ops/scatter.py`), the native
 mesh library (`native.py`) and the JPEG decoder (`utils/jpeg.py`) are
-built this way.
+built this way. The compiler's run is the span `build.<stem>`
+(`utils/profiling.py`); a build found in place records none.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+
+from bundlesdf_tpu_torch.utils.profiling import span
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "build")
@@ -47,8 +50,9 @@ def build_so(stem, sources, command, flags=(), build_dir=BUILD_DIR
     tmp = tempfile.mkdtemp(prefix=f"{stem}.", dir=build_dir)
     try:
         argv, out = command(tmp)
-        proc = subprocess.run(argv, capture_output=True, text=True,
-                              timeout=600)
+        with span(f"build.{stem}"):
+            proc = subprocess.run(argv, capture_output=True, text=True,
+                                  timeout=600)
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"building {stem} failed ({proc.returncode}):"

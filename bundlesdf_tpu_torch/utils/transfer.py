@@ -5,18 +5,23 @@ result dicts with one `jax.device_get`; here a `HostPull` issues a
 non-blocking copy of every tensor into pinned host memory, records one
 CUDA event behind them, and `get()` waits on that event only. On the CPU
 the tensors are copied, so a result never aliases a buffer (such as a pool
-slot) that later work writes in place.
+slot) that later work writes in place. Each pull names its site; the wait
+in `get()` is the span `pull.<site>` (`utils/profiling.py`).
 """
 from __future__ import annotations
 
 import torch
 
+from bundlesdf_tpu_torch.utils.profiling import span
+
 
 class HostPull:
     """Start device->host copies of a {name: tensor} dict now; `get()`
-    returns {name: numpy array} once they have landed."""
+    returns {name: numpy array} once they have landed. @site names the
+    caller (`track.ba`, `nof.chunk`, ...)."""
 
-    def __init__(self, tensors: dict):
+    def __init__(self, tensors: dict, site: str):
+        self._span = "pull." + site
         self._event = None
         cuda = [v for v in tensors.values() if v.device.type == "cuda"]
         if not cuda:
@@ -39,6 +44,7 @@ class HostPull:
 
     def get(self) -> dict:
         if self._event is not None:
-            self._event.synchronize()
+            with span(self._span):
+                self._event.synchronize()
             self._event = None
         return {k: v.numpy() for k, v in self._host.items()}

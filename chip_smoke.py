@@ -595,7 +595,6 @@ def make_runner(n_frames=5, inputs=None, **kw):
 
 def phase_main(runner):
     from bundlesdf_tpu_torch.ops import hashgrid
-    from bundlesdf_tpu_torch.ops.scatter import scatter_rows
     # the group of every scatter call, counted on the way in
     groups, orig = collections.Counter(), hashgrid.scatter_rows
 
@@ -607,14 +606,14 @@ def phase_main(runner):
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        scatter_rows.launches = 0
+        launches0 = scatter_launches()
         m0 = runner.train(n_steps=WARMUP_STEPS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m1 = runner.train(n_steps=TIMED_STEPS)   # pulls metrics: a host sync
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = scatter_rows.launches
+        launches = scatter_launches() - launches0
     finally:
         hashgrid.scatter_rows = orig
     peak = torch.cuda.max_memory_allocated()
@@ -1048,6 +1047,13 @@ def visible_gt_points(seq, model_pts, n_frames):
     return model_pts[dist < 0.005]
 
 
+def scatter_launches() -> int:
+    """The scatter kernel's launches so far in this process (the counter
+    `scatter_rows.launches` of the port's span registry)."""
+    from bundlesdf_tpu_torch.utils import profiling
+    return profiling.snapshot().get("scatter_rows.launches", (0, 0.0))[0]
+
+
 def count_streams():
     """Wrap the hash-grid backward's scatter so each call counts the CUDA
     stream it was issued on; returns (counter, undo)."""
@@ -1079,7 +1085,6 @@ def run_video(seq, feats, cfg_nerf, n_frames, profile_from=None,
     from bundlesdf_tpu_torch.bundlesdf import BundleSdf
     from bundlesdf_tpu_torch.config import default_track_config, dump_config
     from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
-    from bundlesdf_tpu_torch.ops.scatter import scatter_rows
     cfg = default_track_config()
     cfg.update(stage_timing=True, SPDLOG=0 if out_dir is None else 1)
 
@@ -1099,7 +1104,7 @@ def run_video(seq, feats, cfg_nerf, n_frames, profile_from=None,
         try:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            scatter_rows.launches = 0
+            launches0 = scatter_launches()
             t0 = time.perf_counter()
             frames, prof = [], None
             for i in range(n_frames):
@@ -1114,7 +1119,7 @@ def run_video(seq, feats, cfg_nerf, n_frames, profile_from=None,
             t.on_finish()
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            launches = scatter_rows.launches
+            launches = scatter_launches() - launches0
             if prof is not None:
                 wall = time.perf_counter() - tp
                 prof.__exit__(None, None, None)
@@ -1317,19 +1322,18 @@ def phase_refine(seq, fx, out_dir, online, profile=False):
     from bundlesdf_tpu_torch.config import load_yaml
     from bundlesdf_tpu_torch.mesh.marching import marching_tetrahedra
     from bundlesdf_tpu_torch.mesh.render import rasterize
-    from bundlesdf_tpu_torch.ops.scatter import scatter_rows
     from bundlesdf_tpu_torch.utils.png import read_png
     streams, undo = count_streams()
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        scatter_rows.launches = 0
+        launches0 = scatter_launches()
         t0 = time.perf_counter()
         t = run_custom.run_one_video_global_nerf(
             out_folder=out_dir, refine_overrides={"n_step": REFINE_STEPS})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = scatter_rows.launches
+        launches = scatter_launches() - launches0
     finally:
         undo()
     peak = torch.cuda.max_memory_allocated()
@@ -1444,13 +1448,12 @@ BENCH_FRAMES, BENCH_WARMUP = 30, 15
 def _counted(fn):
     """fn() with the scatter kernel's launches counted and the CUDA
     streams they were issued on; returns (result, launches, streams)."""
-    from bundlesdf_tpu_torch.ops.scatter import scatter_rows
     streams, undo = count_streams()
     try:
-        scatter_rows.launches = 0
+        launches0 = scatter_launches()
         out = fn()
         torch.cuda.synchronize()
-        return out, scatter_rows.launches, streams
+        return out, scatter_launches() - launches0, streams
     finally:
         undo()
 
@@ -2679,7 +2682,6 @@ def phase_placement(seq, feats, fx, nerf_device):
 def phase_dp(seq, feats, fx):
     """Phase 17: ray data parallelism on the card, two replicas sharing
     it, held against the single device; then NOF placement."""
-    from bundlesdf_tpu_torch.ops.scatter import scatter_rows
     t_start = time.perf_counter()
     card = torch.device("cuda", 0)
     shared = [card, card]
@@ -2703,10 +2705,10 @@ def phase_dp(seq, feats, fx):
     streams, undo = count_streams()
     try:
         torch.cuda.synchronize()
-        scatter_rows.launches = 0
+        launches0 = scatter_launches()
         m0, _ = _train_timed(dp, DP_WARMUP)
         m1, dt_dp = _train_timed(dp, DP_STEPS)
-        launches = scatter_rows.launches
+        launches = scatter_launches() - launches0
     finally:
         undo()
     s0, _ = _train_timed(sd, DP_WARMUP)

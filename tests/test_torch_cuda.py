@@ -17,6 +17,7 @@ import torch
 from bundlesdf_tpu_torch.ops.hashgrid import (HashGridSpec, hashgrid_corners,
                                               hashgrid_encode)
 from bundlesdf_tpu_torch.ops.scatter import scatter_rows, scatter_rows_torch
+from bundlesdf_tpu_torch.utils import profiling
 from scatter_cases import runs_case
 
 pytestmark = pytest.mark.cuda
@@ -29,6 +30,10 @@ def cuda_device():
                     "card against the CPU, and the scatter_rows kernel has "
                     "no CPU mode")
     return torch.device("cuda")
+
+
+def _launches():
+    return profiling.snapshot().get("scatter_rows.launches", (0, 0.0))[0]
 
 
 def _case(M, D, C, seed):
@@ -46,10 +51,10 @@ def _case(M, D, C, seed):
 def test_kernel_matches_plain(cuda_device, C, dtype, group):
     vals, rows = _case(1 << 18, 70000, C, seed=C)
     v, r = vals.to(cuda_device, dtype), rows.to(cuda_device)
-    before = scatter_rows.launches
+    before = _launches()
     out = scatter_rows(v, r, 70000, group=group)
     torch.cuda.synchronize()
-    assert scatter_rows.launches == before + 1
+    assert _launches() == before + 1
     assert out.dtype == torch.float32 and out.shape == (70000, C)
     # only the order of the f32 atomic adds differs
     torch.testing.assert_close(out, scatter_rows_torch(v, r, 70000),
@@ -322,3 +327,33 @@ def test_orb_card_equals_cpu(cuda_device):
     got = OrbMatcher(device=cuda_device)._frame_feats(fr)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+def test_traced_step_gives_device_ms_to_its_phases(cuda_device, tmp_path):
+    """Three NOF steps of a tiny runner on the card under `device_trace`:
+    `device_ms_by_range` gives device time to the render, the backward
+    (whose kernels autograd's device thread launches, with no range of
+    its own open) and Adam."""
+    from nof_tiny import tiny_runner
+    from bundlesdf_tpu_torch.utils.profiling import (device_trace,
+                                                     load_trace, trace_path)
+    runner = tiny_runner(device=cuda_device)
+    runner.train(n_steps=2)            # warm-up: the kernel's build
+    with device_trace(str(tmp_path), device=cuda_device):
+        runner.train(n_steps=3)
+    got = profiling.device_ms_by_range(load_trace(trace_path(str(tmp_path))))
+    for name in ("nof.render", "nof.backward", "nof.adam"):
+        assert got.get(name, 0.0) > 0.0, (name, got)
+
+
+def test_host_pull_wait_is_its_span(cuda_device):
+    """`HostPull.get()` on the card: the wait for the copies is the span
+    `pull.<site>`, once; a second `get` waits for nothing."""
+    from bundlesdf_tpu_torch.utils.transfer import HostPull
+    x = torch.arange(1 << 20, device=cuda_device, dtype=torch.float32)
+    before = profiling.snapshot()
+    pull = HostPull({"x": x * 2}, "track.test")
+    assert pull.get()["x"][-1] == 2 * ((1 << 20) - 1)
+    pull.get()
+    n = profiling.snapshot()["pull.track.test"][0]
+    assert n - before.get("pull.track.test", (0, 0.0))[0] == 1

@@ -227,3 +227,54 @@ def test_ba_keeps_nerfed_keyframes_pinned(loops):
     for name, log in pinned.items():
         assert len(log) > 0 and all(log), name
     assert len(pinned["torch"]) == len(pinned["jax"])
+
+
+# ---------------------------------------------------------------------------
+# the NOF batches' spans
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("async_host", [False, True])
+def test_pipeline_stats_are_their_spans(tmp_path_factory, async_host):
+    """The port alone over the loop's frames, on the tracker thread and on
+    the `nof-worker` thread: each of the five `pipeline_stats` timers is
+    the seconds of its span, `nof.prep` runs once a batch, and the steps'
+    spans count the steps the batches ran."""
+    from bundlesdf_tpu_torch.utils import profiling
+    seq = cube_orbit_sequence(n_frames=N, H=120, W=160, radius=0.45,
+                              obj_size=0.08, full_angle=0.35)
+    cfg_t, cfg_n = _cfgs(tmp_path_factory.mktemp("spans"))
+    cfg_n.update(optimize_poses=0, async_host=async_host,
+                 sync_max_delay=int(async_host))
+    s = tbsdf.BundleSdf(cfg_track=cfg_t, cfg_nerf=cfg_n, device="cpu",
+                        start_nerf_keyframes=2,
+                        matcher=OrbMatcher(device="cpu",
+                                           detector=cv2_detector))
+    before = profiling.snapshot()
+    for i in range(N):
+        s.run(seq["colors"][i], seq["depths"][i].copy(), seq["K"],
+              seq["id_strs"][i], mask=seq["masks"][i])
+    s.on_finish()
+    after = profiling.snapshot()
+
+    def grew(name):
+        n0, s0 = before.get(name, (0, 0.0))
+        n1, s1 = after.get(name, (0, 0.0))
+        return n1 - n0, s1 - s0
+
+    st = s.pipeline_stats
+    assert st["n_batches"] >= 2
+    for key, name in (("nerf_prep_s", "nof.prep"),
+                      ("nerf_dispatch_s", "nof.dispatch"),
+                      ("nerf_poll_s", "nof.poll"),
+                      ("nerf_sync_s", "nof.sync"),
+                      ("nerf_post_s", "nof.post")):
+        assert grew(name)[1] == pytest.approx(st[key], rel=1e-9,
+                                              abs=1e-12), key
+    assert grew("nof.prep")[0] == st["n_batches"]
+    assert grew("nof.dispatch")[0] == st["n_batches"]
+    assert grew("nof.step")[0] == st["nof_steps_total"]
+    assert grew("scene.bounds")[0] >= st["n_batches"]
+    assert set(st) == {"nerf_prep_s", "nerf_dispatch_s", "nerf_poll_s",
+                       "nerf_sync_s", "nerf_post_s", "n_batches",
+                       "n_sync_blocks", "nof_steps_total"} | (
+                           {"nerf_worker_s"} if async_host else set())

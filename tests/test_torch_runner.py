@@ -7,12 +7,14 @@ import numpy as np
 import pytest
 import torch
 
+from nof_tiny import tiny_runner
 from synthetic import cube_orbit_sequence
 
 from bundlesdf_tpu.nof.runner import NofRunner as JaxNofRunner
 from bundlesdf_tpu_torch.config import default_nerf_config
 from bundlesdf_tpu_torch.nof.runner import (NofRunner, dilate_mask,
                                             preprocess_frame_data)
+from bundlesdf_tpu_torch.utils import profiling
 from bundlesdf_tpu_torch.utils.common import GLCAM_IN_CVCAM
 
 torch.set_num_threads(2)
@@ -94,3 +96,32 @@ def test_training_reduces_loss(orbit):
     # the loss first climbs for a few steps, then falls: compare the
     # first and last five-step means
     assert sdf[-5:].mean() < 0.5 * sdf[:5].mean()
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_train_records_its_spans(k):
+    """`train(n_steps=k)` is k `nof.step` spans, each holding one render,
+    loss, backward and Adam span, then one host pull; the interval hooks
+    run once a chunk. Building the runner built its ray store and
+    occupancy grid, once each."""
+    before = profiling.snapshot()
+    runner = tiny_runner(scan_chunk=2)
+    built = profiling.snapshot()
+
+    def grew(a, b, name):
+        return b.get(name, (0, 0.0))[0] - a.get(name, (0, 0.0))[0]
+
+    assert grew(before, built, "nof.ray_store") == 1
+    assert grew(before, built, "nof.occupancy") == 1
+    runner.train(n_steps=k)
+    after = profiling.snapshot()
+    for name in ("nof.step", "nof.render", "nof.loss", "nof.backward",
+                 "nof.adam"):
+        assert grew(built, after, name) == k, name
+    assert grew(built, after, "nof.pull") == 1
+    assert grew(built, after, "nof.hooks") == (k + 1) // 2
+    step_s = after["nof.step"][1] - built.get("nof.step", (0, 0.0))[1]
+    inner_s = sum(after[n][1] - built.get(n, (0, 0.0))[1]
+                  for n in ("nof.render", "nof.loss", "nof.backward",
+                            "nof.adam"))
+    assert 0.0 < inner_s <= step_s

@@ -9,6 +9,7 @@ import torch
 
 from bundlesdf_tpu.ops.scatter import scatter_rows_sorted_tiles, scatter_rows_xla
 from bundlesdf_tpu_torch.ops.scatter import scatter_rows
+from bundlesdf_tpu_torch.utils import profiling
 from scatter_cases import runs_case
 
 torch.set_num_threads(2)
@@ -82,10 +83,15 @@ def test_scatter_rows_rejects_a_bad_group(group):
                      group=group)
 
 
+def _launches():
+    return profiling.snapshot().get("scatter_rows.launches", (0, 0.0))[0]
+
+
 def test_cpu_path_launches_nothing_and_other_devices_raise():
-    before = scatter_rows.launches
+    before = _launches()
     scatter_rows(torch.ones(3, 2), torch.zeros(3, dtype=torch.int32), 2)
-    assert scatter_rows.launches == before
+    assert _launches() == before
+    assert not hasattr(scatter_rows, "launches")
     with pytest.raises(ValueError, match="CUDA"):
         scatter_rows(torch.ones(3, 2, device="meta"),
                      torch.zeros(3, dtype=torch.int32, device="meta"), 2)
