@@ -27,7 +27,6 @@ from torch import nn
 
 from bundlesdf_tpu_torch.ops.hashgrid import (HashGridSpec, hashgrid_encode,
                                               init_hashgrid_params)
-from bundlesdf_tpu_torch.utils.profiling import span
 from bundlesdf_tpu_torch.utils.se3 import se3_exp
 
 # ---------------------------------------------------------------------------
@@ -227,8 +226,7 @@ def pose_array_matrices(pose_params, frame_ids, max_trans, max_rot_deg):
     theta = torch.tanh(pose_params)
     trans = theta[:, :3] * max_trans
     rot = theta[:, 3:6] * (max_rot_deg / 180.0 * np.pi)
-    with span("pull.nof.pose"):  # se3_exp uploads a constant: a wait
-        Ts = se3_exp(torch.cat([trans, rot], dim=-1))  # (F,4,4)
+    Ts = se3_exp(torch.cat([trans, rot], dim=-1))  # (F,4,4)
     eye = torch.eye(4, dtype=Ts.dtype, device=Ts.device)
     Ts = torch.cat([eye[None], Ts[1:]], dim=0)
     return Ts[frame_ids]

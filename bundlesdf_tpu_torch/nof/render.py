@@ -49,10 +49,11 @@ class RenderConfig:
 
 def render_rays(field, rcfg: RenderConfig, rays: dict, c2w,
                 occ_grid: OccupancyGrid, generator=None, perturb: bool = True,
-                trunc=None):
+                trunc=None, trunc_inv=None):
     """Render a ray batch through @field (a NofField). @c2w: (F,4,4)
     normalized GL cam-to-object poses. @trunc: optional truncation
-    (annealing); defaults to rcfg.trunc. @generator: torch.Generator for
+    (annealing); defaults to rcfg.trunc; a 0-dim device tensor comes with
+    @trunc_inv (see `raw2outputs`). @generator: torch.Generator for
     the stratified jitter (unused when perturb is False and
     raw_noise_std is 0).
 
@@ -153,7 +154,8 @@ def render_rays(field, rcfg: RenderConfig, rays: dict, c2w,
                                 device=sdf.device) * rcfg.raw_noise_std
 
     rgb_map, weights = raw2outputs(raw[..., :3], sdf, z_vals, depth, rcfg,
-                                   valid_samples, trunc=trunc)
+                                   valid_samples, trunc=trunc,
+                                   trunc_inv=trunc_inv)
 
     # hierarchical importance sampling (ref nerf_runner.py:1090-1126)
     for _ in range(rcfg.n_importance_iter if rcfg.n_importance > 0 else 0):
@@ -170,7 +172,8 @@ def render_rays(field, rcfg: RenderConfig, rays: dict, c2w,
             torch.cat([valid_samples, valid_imp], dim=-1), 1, order)
         sdf = raw[..., 3]
         rgb_map, weights = raw2outputs(raw[..., :3], sdf, z_vals, depth,
-                                       rcfg, valid_samples, trunc=trunc)
+                                       rcfg, valid_samples, trunc=trunc,
+                                       trunc_inv=trunc_inv)
 
     out = {"rgb_map": rgb_map, "sdf": sdf, "z_vals": z_vals,
            "weights": weights, "valid_samples": valid_samples, "tf": tf,
@@ -183,14 +186,20 @@ def render_rays(field, rcfg: RenderConfig, rays: dict, c2w,
 
 
 def raw2outputs(rgb_logits, sdf, z_vals, depth, rcfg: RenderConfig,
-                valid_samples, trunc=None):
+                valid_samples, trunc=None, trunc_inv=None):
     """Band-limited SDF compositing (ref raw2outputs + sdf2weights
     nerf_runner.py:1132-1169): bell-shaped weights around the depth-derived
     zero crossing, truncated to [depth-trunc, depth+trunc*neg_ratio],
-    zeroed for invalid depth, normalized."""
+    zeroed for invalid depth, normalized. @trunc_inv: with a device
+    truncation (a captured step's), float32(1 / trunc) computed on the host
+    in double precision: CUDA divides by a host scalar as a product with
+    that reciprocal, so the step gives the bits a float truncation gives."""
     if trunc is None:
         trunc = rcfg.trunc
-    sdf_from_depth = (depth[:, None] - z_vals) / trunc
+    if trunc_inv is None:
+        sdf_from_depth = (depth[:, None] - z_vals) / trunc
+    else:
+        sdf_from_depth = (depth[:, None] - z_vals) * trunc_inv
     w = (torch.sigmoid(sdf_from_depth * rcfg.sdf_lambda)
          * torch.sigmoid(-sdf_from_depth * rcfg.sdf_lambda))
     band = ((z_vals - depth[:, None] <= trunc * rcfg.neg_trunc_ratio)

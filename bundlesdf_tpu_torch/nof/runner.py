@@ -49,8 +49,8 @@ from bundlesdf_tpu_torch.nof.models import (NofField, NofSpec,
                                             params_from_jax, params_to_jax,
                                             pose_array_matrices)
 from bundlesdf_tpu_torch.nof.render import RenderConfig, render_rays
-from bundlesdf_tpu_torch.nof.train import (TrainConfig, make_optimizer,
-                                           train_steps)
+from bundlesdf_tpu_torch.nof.train import (StepGraph, TrainConfig,
+                                           make_optimizer, train_steps)
 from bundlesdf_tpu_torch.ops.hashgrid import HashGridSpec
 from bundlesdf_tpu_torch.ops.occupancy import (OccupancyGrid,
                                                build_occupancy_grid,
@@ -225,6 +225,9 @@ class NofRunner:
         self.global_step = 0
         self.N_iters = cfg["n_step"] + 1
         self._async = None
+        # the training step as a CUDA graph (on CUDA); it recaptures
+        # whenever a step's tensors were rebound (`nof/train.py`)
+        self._step_graph = StepGraph()
 
         down = int(cfg.get("down_scale_ratio", 1))
         if down != 1:
@@ -515,7 +518,8 @@ class NofRunner:
             metrics = train_steps(
                 self.field, self.optimizer, self.rays, self.n_rays_valid,
                 self.c2w, self.occ_grid, self.global_step, chunk, self.rcfg,
-                self.lcfg, self.tcfg, self.N_iters, generator=self.generator)
+                self.lcfg, self.tcfg, self.N_iters, generator=self.generator,
+                graph=self._step_graph)
         else:
             metrics = train_steps_dp(
                 self._synced_replicas(), *self._dp_shards(), self.c2w,

@@ -20,13 +20,13 @@ pose gradient of the NOF step depends on it).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from bundlesdf_tpu_torch.ops.scatter import scatter_rows
-from bundlesdf_tpu_torch.utils.profiling import span
 
 # NGP spatial hash primes (must match gridencoder.cu for weight ports).
 _PRIMES = (1, 2654435761, 805459861)
@@ -117,38 +117,46 @@ class GatherRows(torch.autograd.Function):
         return d_table.to(ctx.table_dtype), None, None, None
 
 
+@functools.cache
+def _layout_constants(spec: HashGridSpec, device: torch.device):
+    """The layout's constants on @device, made once per (spec, device):
+    each is a host->device copy that waits for the stream's queued work,
+    which a training step must not do (and a CUDA graph cannot capture).
+    Returns (res float (L,), res - 1 (L,), res + 1 (L,), corners bool
+    (1,1,8,3), corners int64 (1,1,8,3), dense bool (L,) or None when every
+    level is dense, offsets int64 (L,))."""
+    layout = spec.layout()
+    res_i = torch.tensor([r for r, _, _, _ in layout], dtype=torch.int64,
+                         device=device)
+    corners = torch.as_tensor(_CORNERS, device=device)           # (8,3)
+    dense = None if all(d for _, d, _, _ in layout) else torch.tensor(
+        [d for _, d, _, _ in layout], device=device)
+    offs = torch.tensor([o for _, _, _, o in layout], dtype=torch.int64,
+                        device=device)
+    return (res_i.float(), res_i - 1, res_i + 1, corners.bool()[None, None],
+            corners.long()[None, None], dense, offs)
+
+
 def hashgrid_corners(x, spec: HashGridSpec):
     """Flat-table rows and trilinear weights of every (point, level,
     corner). @x: (N,3) in [-1,1]. Returns rows (N,L,8) int32 and weights
     (N,L,8) float32 (differentiable in x)."""
-    layout = spec.layout()
-    dev = x.device
-    all_dense = all(dense for _, dense, _, _ in layout)
-    # the layout's constants: host->device copies, each of which waits for
-    # the stream's queued work
-    with span("pull.nof.hashgrid"):
-        res_i = torch.tensor([r for r, _, _, _ in layout],
-                             dtype=torch.int64, device=dev)
-        corners = torch.as_tensor(_CORNERS, device=dev)           # (8,3)
-        dense = None if all_dense else torch.tensor(
-            [d for _, d, _, _ in layout], device=dev)
-        offs = torch.tensor([o for _, _, _, o in layout], dtype=torch.int64,
-                            device=dev)
+    res_f, res_m1, res_p1, cb, corners, dense, offs = _layout_constants(
+        spec, x.device)
     x01 = torch.clamp((x.float() + 1.0) * 0.5, 0.0, 1.0)
-    xl = x01[:, None, :] * res_i.float()[None, :, None]          # (N,L,3)
+    xl = x01[:, None, :] * res_f[None, :, None]                   # (N,L,3)
     x0 = torch.minimum(torch.floor(xl).long().clamp(min=0),
-                       (res_i - 1)[None, :, None])
+                       res_m1[None, :, None])
     w = xl - x0.float()                                           # (N,L,3)
-    cb = corners.bool()[None, None]                               # (1,1,8,3)
     f = torch.where(cb, w[:, :, None, :], 1.0 - w[:, :, None, :])  # (N,L,8,3)
     # the product written out: torch.prod's backward is a cumprod scan
     # that ran ~145 ms a step on the H100 at the online workload
     wc = f[..., 0] * f[..., 1] * f[..., 2]                        # (N,L,8)
 
-    c = x0[:, :, None, :] + corners.long()[None, None]            # (N,L,8,3)
-    S = (res_i + 1)[None, :, None]
+    c = x0[:, :, None, :] + corners                               # (N,L,8,3)
+    S = res_p1[None, :, None]
     rows = (c[..., 0] * S + c[..., 1]) * S + c[..., 2]            # dense ids
-    if not all_dense:
+    if dense is not None:
         # int64 products keep the low 32 bits of the reference's uint32
         # arithmetic exact; the mask reproduces its wraparound
         h = ((c[..., 0] * _PRIMES[0]) ^ (c[..., 1] * _PRIMES[1])

@@ -87,9 +87,7 @@ def _to_int(x):
 def _pose_update(poses, delta, flags):
     """poses <- exp(delta) @ poses, zeroing pinned frames' deltas."""
     delta = delta.reshape(-1, 6) * flags[:, None]
-    with span("pull.track.ba_pose"):  # se3_exp uploads a constant: a wait
-        step = se3_exp(delta)
-    return step @ poses
+    return se3_exp(delta) @ poses
 
 
 def _huber(res0, delta):

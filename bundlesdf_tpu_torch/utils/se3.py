@@ -75,8 +75,10 @@ def se3_exp(tau):
     V = _so3_left_jacobian(w)
     trans = (V @ t[..., None])[..., 0]
     top = torch.cat([R, trans[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=tau.dtype,
-                          device=tau.device).expand(top[..., :1, :].shape)
+    # the [0, 0, 0, 1] row made on the device: a host constant would be a
+    # copy that waits for the stream, and no CUDA graph can capture it
+    bottom = top.new_zeros(top.shape[:-2] + (1, 4))
+    bottom[..., 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
 
 

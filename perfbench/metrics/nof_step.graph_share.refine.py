@@ -1,0 +1,14 @@
+"""Share of the refine's traced NOF steps that replayed the captured CUDA
+graph: 100 x the program's `nof.graph.replay` ranges over its `nof.step`
+ranges in the traced steps (the runner captured during set-up). None
+where the slice holds no replay (a program without the graph)."""
+from perfbench import spans
+
+
+def read(window):
+    events = window.get("events")
+    replays = spans.ranges(events, lambda n: n == "nof.graph.replay")
+    steps = spans.ranges(events, lambda n: n == "nof.step")
+    if not replays or not steps:
+        return None
+    return 100.0 * len(replays) / len(steps)

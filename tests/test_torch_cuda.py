@@ -5,7 +5,9 @@ it against PyTorch's own gather backward, the wrapper's input checks, and the tr
 (depth chain into the pool, fused ORB match + lift + RANSAC, bundle
 adjustment) and the port's ORB detector (`matcher/orb.py`, with a mask,
 through the matcher's stream) on the card against the same calls on the
-CPU, at small shapes. Every test needs a CUDA card and skips without one.
+CPU, at small shapes, and the NOF training step replayed as a CUDA graph
+against the same steps run eagerly. Every test needs a CUDA card and
+skips without one.
 
 This file imports no jax, so it also runs where jax is not installed:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -330,20 +332,147 @@ def test_orb_card_equals_cpu(cuda_device):
 
 
 def test_traced_step_gives_device_ms_to_its_phases(cuda_device, tmp_path):
-    """Three NOF steps of a tiny runner on the card under `device_trace`:
-    `device_ms_by_range` gives device time to the render, the backward
-    (whose kernels autograd's device thread launches, with no range of
-    its own open) and Adam."""
+    """Three NOF steps of a new tiny runner on the card under
+    `device_trace`: the first runs eagerly, and `device_ms_by_range` gives
+    device time to its render, its backward (whose kernels autograd's
+    device thread launches, with no range of its own open) and its Adam;
+    the other two replay the captured step, whose device time falls under
+    `nof.graph.replay`, inside each `nof.step`."""
     from nof_tiny import tiny_runner
     from bundlesdf_tpu_torch.utils.profiling import (device_trace,
                                                      load_trace, trace_path)
+    tiny_runner(device=cuda_device).train(n_steps=2)   # the kernel's build
     runner = tiny_runner(device=cuda_device)
-    runner.train(n_steps=2)            # warm-up: the kernel's build
     with device_trace(str(tmp_path), device=cuda_device):
         runner.train(n_steps=3)
     got = profiling.device_ms_by_range(load_trace(trace_path(str(tmp_path))))
-    for name in ("nof.render", "nof.backward", "nof.adam"):
+    for name in ("nof.render", "nof.backward", "nof.adam",
+                 "nof.graph.replay"):
         assert got.get(name, 0.0) > 0.0, (name, got)
+
+
+def _counts(before, *names):
+    after = profiling.snapshot()
+    return [after.get(n, (0, 0.0))[0] - before.get(n, (0, 0.0))[0]
+            for n in names]
+
+
+@pytest.mark.parametrize("t", [0.01, 0.015, 0.0123, 1 / 3])
+def test_device_truncation_gives_the_float_truncations_bits(cuda_device, t):
+    """`raw2outputs` at a device truncation with its host-made reciprocal
+    (a captured step's) gives the outputs and gradients a float
+    truncation gives, bit for bit: CUDA divides by a host scalar as a
+    product with float32(1 / t)."""
+    from bundlesdf_tpu_torch.nof.render import RenderConfig, raw2outputs
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=cuda_device)
+
+    z = torch.sort(rand(256, 32), dim=-1).values.requires_grad_()
+    depth = rand(256) * 0.8 + 0.1
+    rgb = (rand(256, 32, 3) * 4 - 2).requires_grad_()
+    sdf = rand(256, 32) * 2 - 1
+    valid = rand(256, 32) > 0.1
+    cot_rgb, cot_w = rand(256, 3), rand(256, 32)
+    got = []
+    for trunc, inv in ((t, None), (
+            torch.tensor(t, dtype=torch.float32, device=cuda_device),
+            torch.tensor(1.0 / t, dtype=torch.float32, device=cuda_device))):
+        rgb_map, w = raw2outputs(rgb, sdf, z, depth, RenderConfig(), valid,
+                                 trunc=trunc, trunc_inv=inv)
+        loss = (rgb_map * cot_rgb).sum() + (w * cot_w).sum()
+        got.append((rgb_map, w) + torch.autograd.grad(loss, (rgb, z)))
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
+
+
+def _copy_state(dst, src):
+    """@dst's parameters, Adam state and generator state <- @src's."""
+    named = dict(src.field.named_parameters())
+    with torch.no_grad():
+        for n, p in dst.field.named_parameters():
+            p.copy_(named[n])
+            for k, v in src.optimizer.state.get(named[n], {}).items():
+                dst.optimizer.state[p][k].copy_(v)
+    dst.generator.set_state(src.generator.get_state())
+
+
+def test_graph_replays_equal_eager_steps(cuda_device):
+    """Ten steps of a tiny runner through its `StepGraph` (one eager step,
+    then replays of the captured step) against the same runner's eager
+    steps (its graph taken away: every step `train_step`), each eager step
+    from the graph runner's state before it. The losses, the generator's
+    state, every gradient and every parameter and Adam moment come out
+    bit-equal, but the hash table's: its gradient is summed by the
+    `scatter_rows` kernel's atomics, in another order on every run (two
+    eager runs differ there too), so it is held within float32's
+    summation-order error and the table's update is not compared."""
+    from nof_tiny import tiny_runner
+    graph, eager = (tiny_runner(device=cuda_device) for _ in range(2))
+    eager._step_graph = None
+    pg = dict(graph.field.named_parameters())
+    before = profiling.snapshot()
+    for i in range(10):
+        _copy_state(eager, graph)
+        m_g = graph.train(n_steps=1)
+        m_e = eager.train(n_steps=1)
+        for k in m_e:
+            np.testing.assert_array_equal(m_g[k], m_e[k], err_msg=k)
+        torch.cuda.synchronize()
+        for name, p in eager.field.named_parameters():
+            if name == "table":
+                torch.testing.assert_close(
+                    pg[name].grad, p.grad, rtol=1e-4,
+                    atol=1e-6 * float(p.grad.abs().max()))
+                continue
+            assert torch.equal(pg[name].grad, p.grad), (i, name)
+            assert torch.equal(pg[name], p), (i, name)
+            sg, se = graph.optimizer.state[pg[name]], eager.optimizer.state[p]
+            for k in ("exp_avg", "exp_avg_sq", "step"):
+                assert torch.equal(sg[k], se[k]), (i, name, k)
+        assert torch.equal(graph.generator.get_state(),
+                           eager.generator.get_state()), i
+    assert _counts(before, "nof.graph.capture", "nof.graph.replay",
+                   "nof.step") == [1, 9, 20]
+
+
+def test_graph_recaptures_when_its_tensors_are_rebound(cuda_device):
+    """A keyframe batch (`add_new_frames`) and an occupancy rebuild each
+    rebind tensors the captured step reads: the next step runs eagerly and
+    the one after recaptures, so of 1 + 2 + 7 steps after each, the last
+    nine are replays; in-place writes (a pose sync) keep the graph."""
+    from nof_tiny import tiny_runner
+    r = tiny_runner(device=cuda_device)
+    r.train(n_steps=5)
+    before = profiling.snapshot()
+    with r._on_stream(), torch.no_grad():
+        r.field.pose_array.add_(1e-3)
+    r.train(n_steps=5)
+    assert _counts(before, "nof.graph.capture", "nof.graph.replay") == [0, 5]
+    r.add_new_frames(r.images[:1], r.depths[:1], r.masks[:1], None,
+                     list(r.poses) + [r.poses[0]])
+    for n in (1, 2, 7):
+        r.train(n_steps=n)
+    with r._on_stream():
+        r.occ_grid = r._build_occupancy()
+    for n in (1, 2, 7):
+        r.train(n_steps=n)
+    assert _counts(before, "nof.graph.capture", "nof.graph.replay",
+                   "nof.step") == [2, 5 + 2 * 9, 5 + 2 * 10]
+    assert np.all(np.isfinite(r.train(n_steps=3)["loss"]))
+
+
+def test_replayed_steps_count_their_kernel_launches(cuda_device):
+    """`scatter_rows.launches` counts launches on the card: none for a
+    capture, one for each replayed step."""
+    from nof_tiny import tiny_runner
+    r = tiny_runner(device=cuda_device)
+    n0 = _launches()
+    r.train(n_steps=1)
+    assert _launches() - n0 == 1
+    r.train(n_steps=6)
+    assert _launches() - n0 == 7
 
 
 def test_host_pull_wait_is_its_span(cuda_device):
