@@ -231,9 +231,10 @@ class BundleSdf:
             # matcher's device
             out_size = int(self.cfg_track["feature_corres"].get("resize",
                                                                 400))
-            cropsA, cropsB, tfs = process_image_pairs(
-                frame_pairs, out_size,
-                getattr(self.matcher, "device", self.device))
+            with profiling.span("loftr.pairing"):
+                cropsA, cropsB, tfs = process_image_pairs(
+                    frame_pairs, out_size,
+                    getattr(self.matcher, "device", self.device))
             raw = self.matcher.predict(cropsA, cropsB)
             raw = [map_matches_back(uv, tfA, tfB)
                    for uv, (tfA, tfB) in zip(raw, tfs)]

@@ -34,6 +34,7 @@ from torch import nn
 
 from bundlesdf_tpu_torch import resolve_device
 from bundlesdf_tpu_torch.matcher.orb import rgb_to_gray
+from bundlesdf_tpu_torch.utils.profiling import count, span, spanned
 from bundlesdf_tpu_torch.utils.transfer import HostPull
 
 
@@ -540,7 +541,12 @@ class LoftrMatcher:
 
     Pairs of one call are grouped by image shape and matched in batches of
     at most @max_batch pairs (the reference wrapper's batch of 64); the
-    results of the whole call come to the host in one pull."""
+    results of the whole call come to the host in one pull.
+
+    Each call is the span `loftr.predict`, each batch's forward the span
+    `loftr.net`; the counters `loftr.pairs` and `loftr.batches` add each
+    batch's pairs and one, `loftr.matches` the slots kept after the pull
+    (`conf > 0`)."""
 
     def __init__(self, params=None, ckpt_path=None,
                  cfg: LoftrConfig = LoftrConfig(), seed=0, device="cuda",
@@ -566,6 +572,7 @@ class LoftrMatcher:
             img = rgb_to_gray(img)
         return img[:img.shape[0] // 8 * 8, :img.shape[1] // 8 * 8]
 
+    @spanned("loftr.predict")
     @torch.inference_mode()
     def predict(self, rgbAs, rgbBs):
         """@rgbAs/@rgbBs: sequences of (H,W[,3]) uint8 images (numpy
@@ -586,12 +593,17 @@ class LoftrMatcher:
                 chunk = ids[s:s + self.max_batch]
                 a = torch.stack([grayA[i] for i in chunk]).float() / 255.0
                 b = torch.stack([grayB[i] for i in chunk]).float() / 255.0
-                res = self.net(a, b)
+                with span("loftr.net"):
+                    res = self.net(a, b)
+                count("loftr.pairs", len(chunk))
+                count("loftr.batches")
                 c = len(chunks)
                 results.update({f"{k}{c}": res[k]
                                 for k in ("uv0", "uv1", "conf")})
                 chunks.append(chunk)
         host = HostPull(results, "loftr").get()
+        count("loftr.matches", sum(int((host[f"conf{c}"] > 0).sum())
+                                   for c in range(len(chunks))))
         out = [None] * n
         for c, chunk in enumerate(chunks):
             uv0, uv1, conf = host[f"uv0{c}"], host[f"uv1{c}"], host[f"conf{c}"]

@@ -25,13 +25,17 @@ from bundlesdf_tpu_torch.utils.se3 import so3_log_np
 
 
 def mask_roi(mask, pad=0):
-    """Bounding box of the foreground mask: (umin, umax, vmin, vmax)."""
-    vs, us = np.nonzero(np.asarray(mask) > 0)
+    """Bounding box of the foreground mask: (umin, umax, vmin, vmax), from
+    the rows and columns that hold any foreground (a pass over the mask,
+    not the list of its foreground pixels)."""
+    fg = np.asarray(mask) > 0
+    vs = np.flatnonzero(fg.any(axis=1))
+    us = np.flatnonzero(fg.any(axis=0))
     if len(vs) == 0:
-        H, W = np.asarray(mask).shape[:2]
+        H, W = fg.shape[:2]
         return np.array([0, W - 1, 0, H - 1])
-    return np.array([max(us.min() - pad, 0), us.max() + pad,
-                     max(vs.min() - pad, 0), vs.max() + pad])
+    return np.array([max(us[0] - pad, 0), us[-1] + pad,
+                     max(vs[0] - pad, 0), vs[-1] + pad])
 
 
 def _rotate_image_transform(H, W, angle_rad):
@@ -188,21 +192,23 @@ def process_image_pair(imgA, imgB, roiA, roiB, poseA, poseB, out_size=400,
 def process_image_pairs(frame_pairs, out_size=400, device="cpu"):
     """Canonicalize every pair of @frame_pairs ([(fA, fB)] of tracker
     frames of one size) on @device: each frame's grey image is uploaded
-    once, and all crops come from one `warp_perspective`. Returns (cropsA,
-    cropsB, tfs): (P,S,S) uint8 tensors and [(tfA, tfB)]."""
-    slot, colors = {}, []
+    and its mask's ROI found once, and all crops come from one
+    `warp_perspective`. Returns (cropsA, cropsB, tfs): (P,S,S) uint8
+    tensors and [(tfA, tfB)]."""
+    slot, colors, rois = {}, [], {}
     for pair in frame_pairs:
         for f in pair:
             if f.id not in slot:
                 slot[f.id] = len(colors)
                 colors.append(f.color)
+                rois[f.id] = mask_roi(f.fg_mask)
     src = torch.from_numpy(np.stack(colors)).to(device)
     if src.ndim == 4:
         src = rgb_to_gray(src)
     tfs, mats, index = [], [], []
     for fA, fB in frame_pairs:
         tfA, tfB = pair_transforms(
-            fB.H, fB.W, mask_roi(fA.fg_mask), mask_roi(fB.fg_mask),
+            fB.H, fB.W, rois[fA.id], rois[fB.id],
             fA.pose_in_model, fB.pose_in_model, out_size)
         tfs.append((tfA, tfB))
     for side in (0, 1):

@@ -8,6 +8,8 @@ calls cv2.Rodrigues, cv2.cvtColor and cv2.warpPerspective):
 - the torch warp against cv2.warpPerspective (INTER_LINEAR, border 0):
   at most 1 grey level on every pixel, the exact share printed;
 - the batched `process_image_pairs` equals pair-by-pair calls;
+- `mask_roi` equals JAX's (the bounds of the foreground pixels' list) on
+  random masks, an empty mask and with a pad;
 - `map_matches_back` round-trips and equals JAX's.
 """
 from types import SimpleNamespace
@@ -176,3 +178,18 @@ def test_map_matches_back_roundtrip():
     np.testing.assert_allclose(fwdB[:, :2], uv[:, 2:4], atol=1e-9)
     np.testing.assert_array_equal(back[:, 4], uv[:, 4])
     assert len(tp.map_matches_back(np.zeros((0, 5)), tfA, tfB)) == 0
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_mask_roi_equals_jax(seed):
+    rng = np.random.default_rng(seed)
+    H, W = 48, 64
+    masks = [np.zeros((H, W), np.uint8), rng.random((H, W)) > 0.97]
+    m = np.zeros((H, W), np.uint8)
+    m[rng.integers(0, H // 2):rng.integers(H // 2 + 1, H),
+      rng.integers(0, W // 2):rng.integers(W // 2 + 1, W)] = 255
+    masks.append(m)
+    for mask in masks:
+        for pad in (0, 3, 70):
+            got, want = tp.mask_roi(mask, pad), jp.mask_roi(mask, pad)
+            np.testing.assert_array_equal(got, want)
