@@ -6,33 +6,53 @@ Port of `bundlesdf_tpu/ops/hashgrid.py` with the SAME flat table layout
 packages unchanged. Dense levels index (res+1)^3 rows directly; levels
 larger than the table size use the NGP prime hash.
 
-The encoder gathers the 8 corner rows of every (point, level) straight
-from the flat table through `GatherRows`, an autograd Function whose
-backward is the CUDA row scatter-add (`ops/scatter.py`): one gather and
-one scatter launch per call. This is the exact gradient -- what the JAX
-encoder computes with `ray_mode=False`, or in ray mode with a run budget
-that never clamps. The JAX package's TPU machinery (packed-corner rolls,
-run dedup with two-tier budgets, the 12-bit id-split einsum, scatter
-engine choice and `lax.cond` fallbacks) is deliberately not carried over.
+`hashgrid_encode` on CUDA tensors runs two hand-written kernels
+(`csrc/hashgrid.cu`, whose header says what bounds them) through the
+autograd Function `HashGridKernels`: the forward gathers and interpolates
+each (point, level) in registers; the backward recomputes the cells from
+the points, writes the per-corner values and rows that the row
+scatter-add (`ops/scatter.py::scatter_rows`) turns into the table
+gradient, and the point gradient. CUDA tensors take the kernels or raise.
+CPU tensors take the plain version, `hashgrid_encode_torch`: the corner
+rows and weights as tensors (`hashgrid_corners`) and `GatherRows`, an
+autograd Function whose backward is the same scatter. Both give the exact
+gradient -- what the JAX encoder computes with `ray_mode=False`, or in ray
+mode with a run budget that never clamps; `hashgrid_encode_backward_torch`
+writes the kernels' backward out in plain torch. The JAX package's TPU
+machinery (packed-corner rolls, run dedup with two-tier budgets, the
+12-bit id-split einsum, scatter engine choice and `lax.cond` fallbacks) is
+deliberately not carried over.
 
-The point gradient flows through the trilinear weights in autograd (the
-pose gradient of the NOF step depends on it).
+The point gradient flows through the trilinear weights (the pose gradient
+of the NOF step depends on it).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from bundlesdf_tpu_torch.ops.scatter import scatter_rows
+from bundlesdf_tpu_torch.utils.build import build_cuda
+from bundlesdf_tpu_torch.utils.profiling import count
 
 # NGP spatial hash primes (must match gridencoder.cu for weight ports).
 _PRIMES = (1, 2654435761, 805459861)
 
 # the 8 unit-cube corner offsets, fixed order
 _CORNERS = np.array([[i >> 2 & 1, i >> 1 & 1, i & 1] for i in range(8)], np.int32)
+
+_SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "hashgrid.cu")
+# levels the kernels take (kMaxLevels in the .cu, checked when the library
+# loads) and feature widths they are built for
+MAX_LEVELS = 16
+KERNEL_WIDTHS = (1, 2, 4, 8)
 
 
 @dataclass(frozen=True)
@@ -137,17 +157,23 @@ def _layout_constants(spec: HashGridSpec, device: torch.device):
             corners.long()[None, None], dense, offs)
 
 
-def hashgrid_corners(x, spec: HashGridSpec):
-    """Flat-table rows and trilinear weights of every (point, level,
-    corner). @x: (N,3) in [-1,1]. Returns rows (N,L,8) int32 and weights
-    (N,L,8) float32 (differentiable in x)."""
-    res_f, res_m1, res_p1, cb, corners, dense, offs = _layout_constants(
-        spec, x.device)
+def _cells(x, spec: HashGridSpec):
+    """Each (point, level)'s cell: its low corner x0 (N,L,3) int64 and the
+    position w (N,L,3) float32 inside it (differentiable in x)."""
+    res_f, res_m1 = _layout_constants(spec, x.device)[:2]
     x01 = torch.clamp((x.float() + 1.0) * 0.5, 0.0, 1.0)
     xl = x01[:, None, :] * res_f[None, :, None]                   # (N,L,3)
     x0 = torch.minimum(torch.floor(xl).long().clamp(min=0),
                        res_m1[None, :, None])
-    w = xl - x0.float()                                           # (N,L,3)
+    return x0, xl - x0.float()
+
+
+def hashgrid_corners(x, spec: HashGridSpec):
+    """Flat-table rows and trilinear weights of every (point, level,
+    corner). @x: (N,3) in [-1,1]. Returns rows (N,L,8) int32 and weights
+    (N,L,8) float32 (differentiable in x)."""
+    _, _, res_p1, cb, corners, dense, offs = _layout_constants(spec, x.device)
+    x0, w = _cells(x, spec)
     f = torch.where(cb, w[:, :, None, :], 1.0 - w[:, :, None, :])  # (N,L,8,3)
     # the product written out: torch.prod's backward is a cumprod scan
     # that ran ~145 ms a step on the H100 at the online workload
@@ -172,7 +198,17 @@ def hashgrid_encode(table, x, spec: HashGridSpec):
     @table: (total_rows, C) flat parameters (see HashGridSpec.layout).
     @x: (N, 3) points in [-1, 1].
     Returns (N, L*C) float32 features, differentiable in both arguments.
+    CPU tensors take `hashgrid_encode_torch`; CUDA tensors the kernels
+    (`HashGridKernels`), or raise on what they do not take.
     """
+    if table.device.type == "cpu" and x.device.type == "cpu":
+        return hashgrid_encode_torch(table, x, spec)
+    return HashGridKernels.apply(table, x.float().contiguous(), spec)
+
+
+def hashgrid_encode_torch(table, x, spec: HashGridSpec):
+    """The plain version of `hashgrid_encode`: corner rows and weights as
+    tensors, the gather through `GatherRows`."""
     N = x.shape[0]
     C = table.shape[1]
     rows, wc = hashgrid_corners(x, spec)
@@ -183,6 +219,192 @@ def hashgrid_encode(table, x, spec: HashGridSpec):
     f = GatherRows.apply(table, rows.reshape(-1), dtype, spec.n_levels * 8)
     f = f.view(N, spec.n_levels, 8, C).float()
     return torch.sum(f * wc[..., None], dim=2).reshape(N, spec.out_dim)
+
+
+def hashgrid_encode_backward_torch(table, x, g, spec: HashGridSpec):
+    """The kernels' backward written out in plain torch, op for op in the
+    kernel's order: for the cotangent @g (N, L*C) of `hashgrid_encode`
+    returns (vals (N*L*8, C), rows (N*L*8,) int32, dx (N, 3)). vals and
+    rows are the scatter's input in (point, level, corner) order, vals[e]
+    = g * wc rounded to the gather's type, so the table gradient is
+    `scatter_rows(vals, rows, total_rows, group=L*8)`; dx is dL/dx, the
+    levels summed in order."""
+    with torch.no_grad():
+        N, L, C = x.shape[0], spec.n_levels, table.shape[1]
+        rows, wc = hashgrid_corners(x, spec)
+        _, w = _cells(x, spec)
+        dtype = torch.bfloat16 if spec.table_bf16 else torch.float32
+        g = g.float().reshape(N, L, 1, C)
+        vals = (g * wc[..., None]).to(dtype).reshape(N * L * 8, C)
+        f = table.index_select(0, rows.reshape(-1)).to(dtype).float()
+        f = f.view(N, L, 8, C)
+        d = g[..., 0] * f[..., 0]                          # dL/dwc (N,L,8)
+        for k in range(1, C):
+            d = d + g[..., k] * f[..., k]
+        gw = [torch.zeros_like(w[..., 0]) for _ in range(3)]
+        for j, b in enumerate(_CORNERS):
+            fk = [w[..., k] if b[k] else 1.0 - w[..., k] for k in range(3)]
+            d01 = d[..., j] * fk[2]
+            df = (d01 * fk[1], d01 * fk[0], d[..., j] * (fk[0] * fk[1]))
+            gw = [gw[k] + df[k] if b[k] else gw[k] - df[k] for k in range(3)]
+        res_f = _layout_constants(spec, x.device)[0]
+        gxl = torch.stack(gw, dim=-1) * res_f[None, :, None]     # (N,L,3)
+        acc = torch.zeros((N, 3), dtype=torch.float32, device=x.device)
+        for level in range(L):
+            acc = acc + gxl[:, level]
+        u = (x.float() + 1.0) * 0.5
+        dx = torch.where((u >= 0.0) & (u <= 1.0), acc * 0.5,
+                         torch.zeros_like(acc))
+    return vals, rows.reshape(-1), dx
+
+
+def build_library() -> tuple[str, str]:
+    """Compile `csrc/hashgrid.cu` into `csrc/build/` unless a build of the
+    same source is already there. Returns (path, compiler output)."""
+    return build_cuda("hashgrid", _SOURCE)
+
+
+@functools.cache
+def _library():
+    path, _ = build_library()
+    lib = ctypes.CDLL(path)
+    ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    ints = ctypes.POINTER(ctypes.c_int)
+    fwd, bwd = lib.bsdf_hashgrid_forward, lib.bsdf_hashgrid_backward
+    fwd.argtypes = [ptr, ptr, ptr, ctypes.c_int64, i32, i32, i32, ints, ints,
+                    u32, u32, ptr]
+    bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_int64, i32, i32,
+                    i32, ints, ints, u32, u32, ptr]
+    fwd.restype = bwd.restype = ctypes.c_int
+    lib.bsdf_hashgrid_max_levels.restype = ctypes.c_int
+    if lib.bsdf_hashgrid_max_levels() != MAX_LEVELS:
+        raise RuntimeError(f"{path}: kMaxLevels "
+                           f"{lib.bsdf_hashgrid_max_levels()} != "
+                           f"ops/hashgrid.py MAX_LEVELS {MAX_LEVELS}")
+    return fwd, bwd
+
+
+@functools.cache
+def kernel_layout(spec: HashGridSpec):
+    """The layout as the kernels take it, made once per spec: per-level
+    resolutions and row offsets (ctypes int arrays, copied into each
+    launch's arguments), the dense levels as a bit mask, and the hash
+    mask table_size - 1."""
+    layout = spec.layout()
+    res = (ctypes.c_int * len(layout))(*[r for r, _, _, _ in layout])
+    offs = (ctypes.c_int * len(layout))(*[o for _, _, _, o in layout])
+    dense = sum(1 << lvl for lvl, (_, d, _, _) in enumerate(layout) if d)
+    return res, offs, dense, spec.table_size - 1
+
+
+def _check_kernel_inputs(table, x, spec: HashGridSpec):
+    if table.device.type != "cuda" or x.device != table.device:
+        raise ValueError(f"hashgrid_encode: table on {table.device}, points "
+                         f"on {x.device}; both must be on one CUDA device "
+                         f"(or both on the CPU)")
+    if table.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError(f"hashgrid_encode: the kernels take a float32 table "
+                        f"and points, got {table.dtype} and {x.dtype}")
+    if table.dim() != 2 or table.shape[0] != spec.total_rows \
+            or x.dim() != 2 or x.shape[1] != 3:
+        raise ValueError(f"hashgrid_encode: need table ({spec.total_rows}, C)"
+                         f" and points (N, 3), got {tuple(table.shape)} and "
+                         f"{tuple(x.shape)}")
+    C = table.shape[1]
+    if C not in KERNEL_WIDTHS or not 0 < spec.n_levels <= MAX_LEVELS \
+            or spec.total_rows >= 2 ** 31:
+        raise ValueError(f"hashgrid_encode: the kernels take C in "
+                         f"{KERNEL_WIDTHS}, 1-{MAX_LEVELS} levels and fewer "
+                         f"than 2^31 rows; got C={C}, {spec.n_levels} levels, "
+                         f"{spec.total_rows} rows")
+    if not (table.is_contiguous() and x.is_contiguous()) \
+            or table.data_ptr() % 16:
+        raise ValueError("hashgrid_encode: table and points must be "
+                         "contiguous, the table 16-byte aligned")
+
+
+def _launch(fn, spec: HashGridSpec, device, n_points, C, *ptrs):
+    res, offs, dense, mask = kernel_layout(spec)
+    with torch.cuda.device(device):
+        err = fn(*ptrs, n_points, C, int(spec.table_bf16), spec.n_levels, res,
+                 offs, dense, mask, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hashgrid kernel launch failed: CUDA error {err}")
+    # each launch, read from `profiling.snapshot()`: two an encoder call
+    # with a backward, one without
+    count("hashgrid.launches")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def hashgrid_encode_cuda(table, x, spec: HashGridSpec):
+    """The forward kernel: (N, L*C) float32 features of the float32 points
+    @x (N, 3) on the card, no autograd."""
+    _check_kernel_inputs(table, x, spec)
+    N, C = x.shape[0], table.shape[1]
+    out = torch.empty((N, spec.n_levels * C), dtype=torch.float32,
+                      device=x.device)
+    if N:
+        _launch(_library()[0], spec, x.device, N, C, x.data_ptr(),
+                table.data_ptr(), out.data_ptr())
+    return out
+
+
+def hashgrid_encode_backward_cuda(table, x, g, spec: HashGridSpec,
+                                  table_grad=True, x_grad=True):
+    """The backward kernel, the card's `hashgrid_encode_backward_torch`:
+    (vals, rows, dx) for the cotangent @g, vals and rows None without
+    @table_grad, dx None without @x_grad."""
+    _check_kernel_inputs(table, x, spec)
+    N, L, C = x.shape[0], spec.n_levels, table.shape[1]
+    g = g.float().contiguous()
+    if g.shape != (N, L * C):
+        raise ValueError(f"hashgrid_encode: cotangent {tuple(g.shape)} for "
+                         f"features {(N, L * C)}")
+    if g.data_ptr() % 16:
+        g = g.clone()
+    vals = rows = dx = None
+    if table_grad:
+        dtype = torch.bfloat16 if spec.table_bf16 else torch.float32
+        vals = torch.empty((N * L * 8, C), dtype=dtype, device=x.device)
+        rows = torch.empty(N * L * 8, dtype=torch.int32, device=x.device)
+    if x_grad:
+        dx = torch.empty((N, 3), dtype=torch.float32, device=x.device)
+    if N and (table_grad or x_grad):
+        _launch(_library()[1], spec, x.device, N, C, x.data_ptr(),
+                table.data_ptr(), g.data_ptr(), _ptr(vals), _ptr(rows),
+                _ptr(dx))
+    return vals, rows, dx
+
+
+class HashGridKernels(torch.autograd.Function):
+    """`hashgrid_encode` on CUDA tensors (see the module docstring). Saves
+    the table and the points; the backward (not differentiable again: no
+    caller builds a double backward) hands the scatter its input through
+    this module's `scatter_rows` name, with group L*8."""
+
+    @staticmethod
+    def forward(ctx, table, x, spec):
+        out = hashgrid_encode_cuda(table, x, spec)
+        ctx.save_for_backward(table, x)
+        ctx.spec = spec
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        table, x = ctx.saved_tensors
+        spec = ctx.spec
+        need_table, need_x = ctx.needs_input_grad[:2]
+        vals, rows, dx = hashgrid_encode_backward_cuda(
+            table, x, g, spec, table_grad=need_table, x_grad=need_x)
+        d_table = None
+        if need_table:
+            d_table = scatter_rows(vals, rows, table.shape[0],
+                                   group=spec.n_levels * 8)
+        return d_table, dx, None
 
 
 def hashgrid_encode_np(table, x, spec: HashGridSpec):

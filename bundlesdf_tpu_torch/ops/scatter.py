@@ -27,17 +27,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-import shutil
 
 import torch
 
-from bundlesdf_tpu_torch.utils.build import build_so
+from bundlesdf_tpu_torch.utils.build import build_cuda
 from bundlesdf_tpu_torch.utils.profiling import count
 
 _SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "scatter_rows.cu")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # samples one thread walks along a column when group > 1 (kSamples in the
 # .cu, checked when the library loads): a run of equal rows costs one
 # atomic per RUN_SAMPLES samples at most
@@ -52,26 +49,11 @@ def scatter_rows_torch(vals, rows, n_rows: int):
     return out.index_add_(0, rows[keep].long(), vals[keep].float())
 
 
-def _find_nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        nvcc = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin); the "
-                           "scatter_rows CUDA kernel cannot be built")
-    return nvcc
-
-
 def build_library() -> tuple[str, str]:
     """Compile `csrc/scatter_rows.cu` into `csrc/build/` unless a build of
     the same source is already there. Returns (path, compiler output).
     Raises if the build fails."""
-    def command(tmp):
-        out = os.path.join(tmp, "libscatter_rows.so")
-        return [_find_nvcc(), *NVCC_FLAGS, "-o", out, _SOURCE], out
-
-    return build_so("scatter_rows", [_SOURCE], command, NVCC_FLAGS)
+    return build_cuda("scatter_rows", _SOURCE)
 
 
 @functools.cache

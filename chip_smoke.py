@@ -5,7 +5,8 @@
 
 Phases, one printed line each (or a few), any failure exits non-zero:
   1. the card: torch/CUDA versions, `nvidia-smi` name and power limit;
-  2. build the `scatter_rows` CUDA kernel from `bundlesdf_tpu_torch/csrc`;
+  2. build the `scatter_rows` and hash-grid encoder CUDA kernels from
+     `bundlesdf_tpu_torch/csrc`;
   3. kernel vs plain PyTorch scatter at the training step's shapes
      (12.58M rows into the 2,462,164-row table): uniform random rows, and
      the rows and values of one real training step, recorded on their way
@@ -15,14 +16,18 @@ Phases, one printed line each (or a few), any failure exits non-zero:
      kernel (group 32 and group 1), of `index_add_` and of the plain
      version, in turns, beside the bound, and the atomics the kernel
      issues by hash-grid level;
-  4. hash-grid table/point gradients through the kernel vs the same graph
-     with PyTorch's own scatter; one small training step on the card vs
-     the same step on the CPU (the CPU path is the one held against the
-     JAX package by tests/test_torch_*.py);
+  4. the encoder's forward and backward kernels (`csrc/hashgrid.cu`) at
+     each cell's points a step and grid against the plain path and the
+     backward's torch twin, its table and point gradients (with the
+     scatter) against PyTorch's autograd with float32 and bf16 gathers,
+     timed in turns beside their byte bounds and the plain path; one
+     small training step on the card vs the same step on the CPU (the
+     CPU path is the one held against the JAX package by
+     tests/test_torch_*.py);
   5. the NOF main path: `NofRunner` (built without `device`: the card is
      the default) at the online workload (bench.py's configuration) trains
-     10 + 50 steps; steps/s, memory, losses, and the kernel's launches
-     (one a step, with group L*8);
+     10 + 50 steps; steps/s, memory, losses, and the kernels' launches
+     (one scatter a step, with group L*8; two encoder launches a step);
      (before phase 6, the host reads a frame of the orbit written as a
      dataset folder through `YcbineoatReader`, Up and Paeth rows, timed);
   6. tracker components on the card vs the CPU at the steady 480x640
@@ -39,7 +44,8 @@ Phases, one printed line each (or a few), any failure exits non-zero:
      NOF config of `run_custom.py --mode run_video`, `n_step` 500,
      `start_nerf_keyframes` 5, `sync_max_delay` 0): frames/s, NOF batches,
      steps and steps/s, the stall anatomy (`pipeline_stats`), memory, the
-     scatter kernel's launches (= NOF steps) and the stream it ran on,
+     scatter kernel's launches (= NOF steps) and the encoder's (2 a step,
+     1 a forward-only query), both on the runner's stream,
      ADD/ADD-S/AUC and the mesh Chamfer by `eval/benchmark.py`; then the
      final runner's `extract_mesh` against a CPU runner with its weights;
   9. the same run threaded (`sync_max_delay` 4, `async_host`), at
@@ -51,7 +57,8 @@ Phases, one printed line each (or a few), any failure exits non-zero:
      2048 rays x (64 + 256) samples, n_step cut from 2000 to 1000,
      mesh_resolution 0.002,
      texture 512): steps/s, memory, the kernel's launches (= steps) and
-     stream, every artifact, the marching and rasterizer paths (native),
+     stream, the encoder's (2 a step, 1 a forward-only mesh or texture
+     query), every artifact, the marching and rasterizer paths (native),
      the refined mesh's Chamfer and the optimized poses' ADD beside the
      online run's, the texture's filled share; then the kernel against
      its plain version on the rows of one refine step (83,886,080
@@ -60,8 +67,9 @@ Phases, one printed line each (or a few), any failure exits non-zero:
      its NOF line at full length, its tracking and pipeline lines on the
      first 30 of their 70 frames with a warm-up of 15 (ORB features from
      tests/fixtures/tracker_orb_bench70.npz); each record printed, device
-     times from profiler unions, the kernel's launches in the NOF and
-     pipeline lines (= that line's NOF steps, on the runner's stream),
+     times from profiler unions, the kernels' launches in the NOF and
+     pipeline lines (= that line's NOF steps, the encoder's 2 a step + 1 a
+     forward-only query, on the runner's stream),
      the pipeline's frame rate at most its device floor;
  12. the protocol driver (`bundlesdf_tpu_torch/benchmark_synthetic.py`)
      on the whole 120-frame easy orbit, `--no_nerf --skip_refine`, ORB
@@ -93,7 +101,8 @@ Phases, one printed line each (or a few), any failure exits non-zero:
      HO3D folder (tests/ho3d_layout.py) and read back through
      `Ho3dReader`; `run_ho3d.run_one_video` over its first 20 frames with
      the NOF on (0 FAIL, ADD against phase 9's on those frames, online
-     Chamfer, launches = NOF steps); `run_ho3d.run_one_video_global_nerf`
+     Chamfer, launches = NOF steps, the encoder's as in phase 8);
+     `run_ho3d.run_one_video_global_nerf`
      at HO3D's refine config (finest 512, 16 levels, four of them hashed,
      84,133,278 rows, n_step cut to 400) and the kernel on one such
      step's rows, timed and checked as in phase 10; `benchmark_ho3d`'s
@@ -105,8 +114,8 @@ Phases, one printed line each (or a few), any failure exits non-zero:
      single-device one, f32 and amp; 10 + 100 DP steps against 10 + 100
      single-device steps (steps/s, host and device ms a step, the
      gradient reduction's device ms), the replicas bit-equal, the
-     kernel's launches (= steps x replicas, each on its replica's
-     stream) and the kernel against its plain version on one DP step's
+     kernels' launches (the scatter's = steps x replicas, the encoder's
+     twice that, each on its replica's stream) and the kernel against its plain version on one DP step's
      rows; `add_new_frames` then 20 DP steps; a `BundleSdf` with
      `nerf_device: 0` over 10 frames (strict sync, NOF batches of 101
      steps), and `nerf_device: 1` and DP over every card where there is
@@ -236,13 +245,15 @@ def phase_card():
 
 
 def phase_build():
-    from bundlesdf_tpu_torch.ops.scatter import build_library
-    t0 = time.perf_counter()
-    path, log = build_library()
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"build: {time.perf_counter() - t0:.2f} s {os.path.relpath(path, ROOT)}"
-          f" | {' | '.join(ptxas)}", flush=True)
+    from bundlesdf_tpu_torch.ops import hashgrid, scatter
+    for build in (scatter.build_library, hashgrid.build_library):
+        t0 = time.perf_counter()
+        path, log = build()
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"build: {time.perf_counter() - t0:.2f} s "
+              f"{os.path.relpath(path, ROOT)} | {' | '.join(ptxas)}",
+              flush=True)
 
 
 def _scatter_case(n_rows, C, dtype, gen):
@@ -489,44 +500,147 @@ def _ray_points(n_rays, n_samples, gen):
     return (o + d * t).reshape(-1, 3).clamp(-0.99, 0.99)
 
 
-def phase_hashgrid_grad(spec):
-    """Table and point gradients through GatherRows (the kernel) vs the same
-    graph whose gather backward is PyTorch's index_select backward."""
-    from bundlesdf_tpu_torch.ops.hashgrid import (hashgrid_corners,
-                                                  hashgrid_encode,
-                                                  init_hashgrid_params)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    x0 = _ray_points(N_RAND, N_SAMPLES, gen)
-    table0 = init_hashgrid_params(spec, generator=gen, device="cuda")
-    cot = torch.randn((x0.shape[0], spec.out_dim), generator=gen,
-                      device="cuda")
-    errs = []
+# the cells' encoder work: (cell, points a NOF step, grid); bf16 gathers,
+# as `amp` runs them
+ENCODER_CELLS = (
+    ("custom.online", N_RAND * (128 + 64), {}),
+    ("custom.refine", N_RAND * (64 + 256),
+     dict(n_levels=16, finest_res=256, log2_hashmap_size=24)),
+    ("ho3d.refine", N_RAND * (128 + 64),
+     dict(n_levels=16, finest_res=512, log2_hashmap_size=24)))
+
+
+def _encoder_bytes(n, spec, rows):
+    """Least bytes of the encoder's forward kernel and of its backward
+    kernel for @n points: the points (and the cotangent) read once, each
+    distinct corner row of the table read once, the features (the
+    scatter's values and rows, dx) written once."""
+    L, C = spec.n_levels, spec.level_dim
+    table = int(torch.unique(rows).numel()) * C * 4
+    feats = n * L * C * 4
+    val = 2 if spec.table_bf16 else 4
+    return (n * 12 + table + feats,
+            n * 12 + feats + table + n * L * 8 * (C * val + 4) + n * 12)
+
+
+def _encoder_grads(cell, spec, x, cot, gen):
+    """Table and point gradients through `hashgrid_encode` (the encoder
+    kernels and the scatter) vs the same encoder built of autograd ops
+    whose gather backward is PyTorch's index_select backward, from a
+    torch-ngp table at @spec's grid, with float32 and bf16 gathers. Both
+    sum the same per-corner terms (the backward kernel's values are
+    bit-equal to them), so the table's gradient is held to the row bound
+    of float32 sums in another order (`_row_tolerance`); the points' to
+    1e-4 + 1e-5 |dx|. Returns the max abs errors (table, x)."""
+    from bundlesdf_tpu_torch.ops import hashgrid as hg
+    table0 = hg.init_hashgrid_params(spec, generator=gen, device="cuda")
+    errs = [0.0, 0.0]
     for bf16 in (False, True):
         s = replace(spec, table_bf16=bf16)
         dtype = torch.bfloat16 if bf16 else torch.float32
         grads = []
         for use_kernel in (True, False):
             table = table0.clone().requires_grad_()
-            x = x0.clone().requires_grad_()
+            xg = x.clone().requires_grad_()
             if use_kernel:
-                enc = hashgrid_encode(table, x, s)
+                enc = hg.hashgrid_encode(table, xg, s)
             else:
-                rows, wc = hashgrid_corners(x, s)
+                rows, wc = hg.hashgrid_corners(xg, s)
                 f = table.index_select(0, rows.reshape(-1).long()).to(dtype)
                 f = f.view(x.shape[0], s.n_levels, 8, -1).float()
-                enc = torch.sum(f * wc[..., None], dim=2).reshape(x.shape[0], -1)
+                enc = torch.sum(f * wc[..., None], dim=2).reshape(
+                    x.shape[0], -1)
             torch.sum(enc * cot).backward()
-            grads.append((table.grad, x.grad))
-        torch.cuda.synchronize()
-        for what, a, b in zip(("table", "x"), grads[0], grads[1]):
-            err = float((a - b).abs().max())
-            if not torch.allclose(a, b, atol=1e-4, rtol=1e-5):
-                raise AssertionError(f"hashgrid {what} grad (bf16={bf16}): "
-                                     f"kernel != plain, max abs err {err}")
-            errs.append(err)
-        print(f"hashgrid grad bf16={bf16}: {x0.shape[0]} points, table/x "
-              f"max abs err {errs[-2]:.3e}/{errs[-1]:.3e}", flush=True)
-    return max(errs)
+            grads.append((table.grad, xg.grad))
+            del table, xg, enc
+        vals, rows, _ = hg.hashgrid_encode_backward_cuda(
+            table0, x, cot, s, x_grad=False)
+        tol = _row_tolerance(vals, rows, table0.shape[0])
+        del vals, rows
+        (t_k, x_k), (t_p, x_p) = grads
+        t_err, x_err = (float((t_k - t_p).abs().max()),
+                        float((x_k - x_p).abs().max()))
+        bad = int(((t_k - t_p).abs() > tol).sum())
+        if bad or not torch.allclose(x_k, x_p, atol=1e-4, rtol=1e-5):
+            raise AssertionError(f"encoder {cell} grads (bf16={bf16}): "
+                                 f"table beyond the row bound in {bad} "
+                                 f"row-channels, max abs err {t_err}; x max "
+                                 f"abs err {x_err}")
+        errs = [max(errs[0], t_err), max(errs[1], x_err)]
+        del grads, tol, t_k, x_k, t_p, x_p
+        torch.cuda.empty_cache()
+    return errs
+
+
+def phase_encoder():
+    """The hash-grid encoder's two kernels at each cell's points a step
+    and grid, on ray-ordered points: the forward within float32 summation
+    order of the plain path's, the backward's values, rows and dx
+    bit-equal to its torch twin's, the table and point gradients against
+    PyTorch's autograd (`_encoder_grads`); then, in turns, the forward
+    kernel, the backward kernel, forward + backward through autograd
+    (with the scatter) and the plain path's forward + backward, each
+    kernel beside its byte bound."""
+    from bundlesdf_tpu_torch.ops import hashgrid as hg
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    results = {}
+    for cell, n, kw in ENCODER_CELLS:
+        spec = hg.HashGridSpec(**kw, table_bf16=True)
+        x = _ray_points(N_RAND, n // N_RAND, gen).contiguous()
+        table = torch.rand((spec.total_rows, spec.level_dim), generator=gen,
+                           device="cuda") * 0.2 - 0.1
+        cot = torch.randn((n, spec.out_dim), generator=gen, device="cuda")
+        out_p = hg.hashgrid_encode_torch(table, x, spec)
+        tol = (1e-6 * out_p.abs()
+               + 16 * 2.0 ** -24 * hg.hashgrid_encode_torch(table.abs(), x,
+                                                            spec))
+        fwd_err = float(((hg.hashgrid_encode_cuda(table, x, spec) - out_p)
+                         .abs() / tol.clamp_min(1e-38)).max())
+        del out_p, tol
+        got = hg.hashgrid_encode_backward_cuda(table, x, cot, spec)
+        want = hg.hashgrid_encode_backward_torch(table, x, cot, spec)
+        same = [torch.equal(a, b) for a, b in zip(got, want)]
+        fwd_bytes, bwd_bytes = _encoder_bytes(n, spec, got[1])
+        del got, want
+        if fwd_err > 1 or not all(same):
+            raise AssertionError(f"encoder {cell}: forward error {fwd_err:.3f}"
+                                 f" of the summation-order bound; vals, rows,"
+                                 f" dx bit-equal to the twin: {same}")
+        t_err, x_err = _encoder_grads(cell, spec, x, cot, gen)
+        tp, xp = table.clone().requires_grad_(), x.clone().requires_grad_()
+
+        def step(encode):
+            def run():
+                tp.grad = xp.grad = None
+                encode(tp, xp, spec).backward(cot)
+            return run
+
+        t = _in_turns({
+            "fwd_ms": lambda: hg.hashgrid_encode_cuda(table, x, spec),
+            "bwd_ms": lambda: hg.hashgrid_encode_backward_cuda(table, x, cot,
+                                                               spec),
+            "step_ms": step(hg.hashgrid_encode),
+            "plain_ms": step(hg.hashgrid_encode_torch)}, reps=3)
+        res = {"points": n, "levels": spec.n_levels, **t,
+               "fwd_bound_ms": 1e3 * fwd_bytes / HBM_BYTES_S,
+               "bwd_bound_ms": 1e3 * bwd_bytes / HBM_BYTES_S,
+               "fwd_error_over_bound": fwd_err,
+               "table_grad_max_abs_err": t_err, "x_grad_max_abs_err": x_err}
+        results[cell] = res
+        print(f"encoder {cell}: {n} points x {spec.n_levels} levels (bf16 "
+              f"gather); forward kernel {t['fwd_ms']:.4f} ms, bound "
+              f"{res['fwd_bound_ms']:.4f} ms ({res['fwd_bound_ms'] / t['fwd_ms']:.1%}); "
+              f"backward kernel {t['bwd_ms']:.4f} ms, bound "
+              f"{res['bwd_bound_ms']:.4f} ms ({res['bwd_bound_ms'] / t['bwd_ms']:.1%}); "
+              f"forward + backward with the scatter {t['step_ms']:.4f} ms, "
+              f"plain path {t['plain_ms']:.4f} ms; forward error "
+              f"{fwd_err:.3f} of its bound, the backward's values, rows and "
+              f"dx = the twin's; gradients vs autograd (f32 and bf16 "
+              f"gathers): table/x max abs err {t_err:.3e}/{x_err:.3e}",
+              flush=True)
+        del table, x, cot, tp, xp
+        torch.cuda.empty_cache()
+    return results
 
 
 def phase_step_vs_cpu(runner):
@@ -624,7 +738,7 @@ def phase_main(runner):
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        launches0 = scatter_launches()
+        launches0, enc0 = scatter_launches(), encoder_launches()
         m0 = runner.train(n_steps=WARMUP_STEPS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -632,6 +746,7 @@ def phase_main(runner):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = scatter_launches() - launches0
+        enc = encoder_launches() - enc0
     finally:
         hashgrid.scatter_rows = orig
     peak = torch.cuda.max_memory_allocated()
@@ -642,7 +757,8 @@ def phase_main(runner):
           f"({TIMED_STEPS} steps after {WARMUP_STEPS} warm-up), peak "
           f"{peak / 2 ** 30:.3f} GiB, loss {loss[0]:.5f} -> {loss[-1]:.5f}, "
           f"sdf_loss {sdf[0]:.5f} -> {sdf[-1]:.5f}, scatter_rows launches "
-          f"{launches} (calls by group {dict(groups)})", flush=True)
+          f"{launches} (calls by group {dict(groups)}), hashgrid launches "
+          f"{enc}", flush=True)
     if not np.isfinite(loss).all():
         raise AssertionError("main path: non-finite loss")
     if not sdf[-5:].mean() < sdf[:5].mean():
@@ -655,7 +771,10 @@ def phase_main(runner):
                              f"calls by group {dict(groups)}, for {n_steps} "
                              f"steps; expected one launch a step, every call "
                              f"with group {group}")
-    return launches
+    if enc != 2 * n_steps:
+        raise AssertionError(f"main path: {enc} hashgrid launches for "
+                             f"{n_steps} steps; expected 2 a step")
+    return launches, enc
 
 
 def phase_profile(runner, n_steps=5):
@@ -1073,21 +1192,71 @@ def scatter_launches() -> int:
     return profiling.snapshot().get("scatter_rows.launches", (0, 0.0))[0]
 
 
-def count_streams():
-    """Wrap the hash-grid backward's scatter so each call counts the CUDA
-    stream it was issued on; returns (counter, undo)."""
-    from bundlesdf_tpu_torch.ops import hashgrid
-    streams, orig = collections.Counter(), hashgrid.scatter_rows
+def encoder_launches() -> int:
+    """The encoder kernels' launches so far (`hashgrid.launches`)."""
+    from bundlesdf_tpu_torch.utils import profiling
+    return profiling.snapshot().get("hashgrid.launches", (0, 0.0))[0]
 
-    def on_stream(vals, rows, n_rows, group=1):
-        streams[torch.cuda.current_stream().cuda_stream] += 1
-        return orig(vals, rows, n_rows, group=group)
 
-    hashgrid.scatter_rows = on_stream
+class KernelCounts:
+    """While open: the scatter kernel's and the encoder kernels' launches
+    (`scatter_launches`, `encoder_launches`), the CUDA streams their
+    Python calls were issued on (eager steps and captures: a replayed step
+    calls no Python), and the field's encoder calls made without autograd
+    (mesh and texture queries, one forward launch each)."""
 
-    def undo():
-        hashgrid.scatter_rows = orig
-    return streams, undo
+    def __enter__(self):
+        from bundlesdf_tpu_torch.nof import models
+        from bundlesdf_tpu_torch.ops import hashgrid
+        self.streams = collections.Counter()
+        self.encoder_streams = collections.Counter()
+        self.forward_only = 0
+        scatter, launch = hashgrid.scatter_rows, hashgrid._launch
+        encode = models.hashgrid_encode
+
+        def scatter_on_stream(vals, rows, n_rows, group=1):
+            self.streams[torch.cuda.current_stream().cuda_stream] += 1
+            return scatter(vals, rows, n_rows, group=group)
+
+        def launch_on_stream(fn, spec, device, *args):
+            self.encoder_streams[
+                torch.cuda.current_stream(device).cuda_stream] += 1
+            return launch(fn, spec, device, *args)
+
+        def encode_counted(table, x, spec):
+            self.forward_only += not torch.is_grad_enabled()
+            return encode(table, x, spec)
+
+        def undo():
+            hashgrid.scatter_rows, hashgrid._launch = scatter, launch
+            models.hashgrid_encode = encode
+
+        hashgrid.scatter_rows, hashgrid._launch = (scatter_on_stream,
+                                                   launch_on_stream)
+        models.hashgrid_encode = encode_counted
+        self._undo = undo
+        self._launches0 = scatter_launches(), encoder_launches()
+        return self
+
+    def __exit__(self, *exc):
+        self._undo()
+        self.launches = scatter_launches() - self._launches0[0]
+        self.encoder_launches = encoder_launches() - self._launches0[1]
+
+    def check_encoder(self, what, steps, stream=None):
+        """Two encoder launches a training step (forward and backward,
+        eager or replayed), one a call without autograd; with @stream,
+        every launch made from Python issued on it."""
+        fwd = self.forward_only
+        if self.encoder_launches != 2 * steps + fwd:
+            raise AssertionError(f"{what}: {self.encoder_launches} hashgrid "
+                                 f"launches for {steps} steps and {fwd} "
+                                 f"forward-only calls; expected 2 a step, 1 "
+                                 f"a call")
+        if stream is not None and set(self.encoder_streams) != {stream}:
+            raise AssertionError(f"{what}: hashgrid kernels launched on "
+                                 f"streams {dict(self.encoder_streams)}, the "
+                                 f"runner's is {stream}")
 
 
 def run_video(seq, feats, cfg_nerf, n_frames, profile_from=None,
@@ -1095,10 +1264,9 @@ def run_video(seq, feats, cfg_nerf, n_frames, profile_from=None,
     """`BundleSdf.run` over @n_frames with the NOF on (built without
     `device`: the card is the default), then `on_finish`. Returns the
     tracker, its frames, the wall seconds from a device sync to the end of
-    on_finish, the scatter kernel's launches over the run, and the CUDA
-    streams the kernel was launched on. With @profile_from, a
+    on_finish, and the run's `KernelCounts`. With @profile_from, a
     torch.profiler of the card's activity runs from that frame to the end
-    and is returned with its wall seconds as a 6th item. With @out_dir the
+    and is returned with its wall seconds as a 5th item. With @out_dir the
     run writes its artifacts there (`SPDLOG` 1, with the two config files
     `run_custom.run_one_video` dumps), for the offline refine."""
     from bundlesdf_tpu_torch.bundlesdf import BundleSdf
@@ -1119,11 +1287,9 @@ def run_video(seq, feats, cfg_nerf, n_frames, profile_from=None,
                       start_nerf_keyframes=5, matcher=matcher)
         if t.device.type != "cuda":
             raise AssertionError(f"BundleSdf's default device is {t.device}")
-        streams, undo = count_streams()
-        try:
+        with KernelCounts() as counts:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            launches0 = scatter_launches()
             t0 = time.perf_counter()
             frames, prof = [], None
             for i in range(n_frames):
@@ -1138,14 +1304,12 @@ def run_video(seq, feats, cfg_nerf, n_frames, profile_from=None,
             t.on_finish()
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            launches = scatter_launches() - launches0
             if prof is not None:
                 wall = time.perf_counter() - tp
                 prof.__exit__(None, None, None)
-                return t, frames, dt, launches, streams, (prof, wall)
-        finally:
-            undo()
-    return t, frames, dt, launches, streams
+        if prof is not None:
+            return t, frames, dt, counts, (prof, wall)
+    return t, frames, dt, counts
 
 
 def phase_video(seq, feats, fx, name, cfg_nerf, n_frames=N_TRACK,
@@ -1156,8 +1320,9 @@ def phase_video(seq, feats, fx, name, cfg_nerf, n_frames=N_TRACK,
     @out_dir it leaves its artifacts there (see `run_video`)."""
     from bundlesdf_tpu_torch.eval.benchmark import benchmark_video
     from bundlesdf_tpu_torch.mesh.marching import marching_tetrahedra
-    t, frames, dt, launches, streams = run_video(seq, feats, cfg_nerf,
-                                                 n_frames, out_dir=out_dir)
+    t, frames, dt, counts = run_video(seq, feats, cfg_nerf, n_frames,
+                                      out_dir=out_dir)
+    launches, streams = counts.launches, counts.streams
     # the artifact writes (SPDLOG 1), a stage of their own
     art_s = sum(st.get("artifacts", 0.0) for st in t.stage_stats)
     peak = torch.cuda.max_memory_allocated()
@@ -1180,7 +1345,7 @@ def phase_video(seq, feats, fx, name, cfg_nerf, n_frames=N_TRACK,
            "n_batches": st["n_batches"], "nof_steps_total": steps,
            "nof_steps_per_s": steps / max(batch_s, 1e-9),
            "pipeline_stats": st, "peak_gib": peak / 2 ** 30,
-           "launches": launches,
+           "launches": launches, "encoder_launches": counts.encoder_launches,
            "add_mm": scores["ADD(cm)"] * 10, "adds_mm": scores["ADDS(cm)"] * 10,
            "add_auc": scores["ADD_AUC(%)"], "adds_auc": scores["ADDS_AUC(%)"],
            "chamfer_cm": scores["chamfer(cm)"],
@@ -1195,7 +1360,9 @@ def phase_video(seq, feats, fx, name, cfg_nerf, n_frames=N_TRACK,
           f"{res['frames_per_s']:.4f} frames/s {res['ms_per_frame']:.3f} "
           f"ms/frame{vs}; NOF batches {st['n_batches']}, steps {steps} "
           f"({res['nof_steps_per_s']:.3f} steps/s inside batches); "
-          f"scatter_rows launches {launches}; kernel streams "
+          f"scatter_rows launches {launches}; hashgrid launches "
+          f"{counts.encoder_launches} ({counts.forward_only} "
+          f"forward-only calls); kernel streams "
           f"{ {('nof' if k == nerf_stream else k): v for k, v in streams.items()} }; "
           f"peak {res['peak_gib']:.3f} GiB", flush=True)
     if out_dir is not None:
@@ -1238,6 +1405,7 @@ def phase_video(seq, feats, fx, name, cfg_nerf, n_frames=N_TRACK,
         raise AssertionError(f"run_video {name}: scatter kernel launched on "
                              f"streams {dict(streams)}, the runner's is "
                              f"{nerf_stream}")
+    counts.check_encoder(f"run_video {name}", steps, nerf_stream)
     if not all(kf.nerfed for kf in t.bundler.keyframes):
         raise AssertionError(f"run_video {name}: a keyframe was never synced "
                              f"from the NOF")
@@ -1251,7 +1419,7 @@ def phase_video_profile(seq, feats, n_frames=10, profile_from=5):
     from torch.autograd import DeviceType
     from bundlesdf_tpu_torch.config import default_track_config
     cfg = online_nerf_config(default_track_config(), sync_max_delay=0)
-    t, _, _, launches, _, (prof, wall) = run_video(
+    t, _, _, counts, (prof, wall) = run_video(
         seq, feats, cfg, n_frames, profile_from=profile_from)
     ka = prof.key_averages()
     dev_us = sum(e.self_device_time_total for e in ka
@@ -1259,7 +1427,8 @@ def phase_video_profile(seq, feats, n_frames=10, profile_from=5):
     print(f"profile of the online loop, frames {profile_from}-"
           f"{n_frames - 1} + on_finish ({t.pipeline_stats['n_batches']} NOF "
           f"batch(es), {t.pipeline_stats.get('nof_steps_total', 0)} steps, "
-          f"{launches} scatter launches), {torch.cuda.get_device_name(0)}: "
+          f"{counts.launches} scatter launches), "
+          f"{torch.cuda.get_device_name(0)}: "
           f"wall {wall:.3f} s, device-busy {dev_us / 1e6:.3f} s "
           f"({dev_us / 1e4 / wall:.1f} % of wall)\n"
           f"{ka.table(sort_by='self_cuda_time_total', row_limit=15)}",
@@ -1342,19 +1511,16 @@ def phase_refine(seq, fx, out_dir, online, profile=False):
     from bundlesdf_tpu_torch.mesh.marching import marching_tetrahedra
     from bundlesdf_tpu_torch.mesh.render import rasterize
     from bundlesdf_tpu_torch.utils.png import read_png
-    streams, undo = count_streams()
-    try:
+    with KernelCounts() as counts:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        launches0 = scatter_launches()
         t0 = time.perf_counter()
         t = run_custom.run_one_video_global_nerf(
             out_folder=out_dir, refine_overrides={"n_step": REFINE_STEPS})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = scatter_launches() - launches0
-    finally:
-        undo()
+    launches, streams = counts.launches, counts.streams
+    enc = counts.encoder_launches
     peak = torch.cuda.max_memory_allocated()
     st, cfg, runner = t.refine_stats, t.nerf.cfg, t.nerf
     nerf_stream = runner.stream.cuda_stream
@@ -1369,7 +1535,8 @@ def phase_refine(seq, fx, out_dir, online, profile=False):
           f"{st['read_prep_s']:.3f} s, mesh {st['mesh_s']:.3f} s, texture "
           f"{st['texture_s']:.3f} s, wall {wall:.3f} s; peak "
           f"{peak / 2 ** 30:.3f} GiB; scatter_rows launches {launches}; "
-          f"kernel streams "
+          f"hashgrid launches {enc} ({counts.forward_only} "
+          f"forward-only calls); kernel streams "
           f"{ {('nof' if k == nerf_stream else k): v for k, v in streams.items()} }; "
           f"marching {marching_tetrahedra.last_path}, rasterizer "
           f"{rasterize.last_path}", flush=True)
@@ -1382,6 +1549,7 @@ def phase_refine(seq, fx, out_dir, online, profile=False):
         raise AssertionError(f"refine: {launches} scatter_rows launches for "
                              f"{st['steps']} steps, on streams "
                              f"{dict(streams)} (the runner's: {nerf_stream})")
+    counts.check_encoder("refine", st["steps"], nerf_stream)
     if (marching_tetrahedra.last_path, rasterize.last_path) != \
             ("native", "native"):
         raise AssertionError(f"refine: marching {marching_tetrahedra.last_path}"
@@ -1411,7 +1579,7 @@ def phase_refine(seq, fx, out_dir, online, profile=False):
     filled = float((tex != 128).any(-1).mean())
     res = {"steps": st["steps"], "steps_per_s": st["steps_per_s"],
            "peak_gib": peak / 2 ** 30, "launches": launches,
-           "wall_s": wall, "stats": st,
+           "encoder_launches": enc, "wall_s": wall, "stats": st,
            "mesh_faces": len(t.mesh.faces), "chamfer_cm": s_ref["chamfer(cm)"],
            "add_mm": s_ref["ADD(cm)"] * 10, "adds_mm": s_ref["ADDS(cm)"] * 10,
            "online_kf_add_mm": s_on["ADD(cm)"] * 10, "texture_filled": filled}
@@ -1465,19 +1633,15 @@ BENCH_FRAMES, BENCH_WARMUP = 30, 15
 
 
 def _counted(fn):
-    """fn() with the scatter kernel's launches counted and the CUDA
-    streams they were issued on; returns (result, launches, streams)."""
-    streams, undo = count_streams()
-    try:
-        launches0 = scatter_launches()
+    """fn() with its kernels counted; returns (result, `KernelCounts`)."""
+    with KernelCounts() as counts:
         out = fn()
         torch.cuda.synchronize()
-        return out, scatter_launches() - launches0, streams
-    finally:
-        undo()
+    return out, counts
 
 
-def _check_launches(line, launches, streams, steps, stream):
+def _check_launches(line, counts, steps, stream):
+    launches, streams = counts.launches, counts.streams
     if not (steps > 0 and launches == steps):
         raise AssertionError(f"bench {line}: {launches} scatter_rows launches "
                              f"for {steps} NOF steps")
@@ -1486,6 +1650,7 @@ def _check_launches(line, launches, streams, steps, stream):
         raise AssertionError(f"bench {line}: scatter kernel launched on "
                              f"streams {dict(streams)}, the runner's is "
                              f"{stream.cuda_stream}")
+    counts.check_encoder(f"bench {line}", steps, stream.cuda_stream)
 
 
 def phase_bench():
@@ -1494,10 +1659,10 @@ def phase_bench():
     pipeline lines on the first 30 frames (warm-up 15)."""
     from bundlesdf_tpu_torch import bench
     t0 = time.perf_counter()
-    (nof, runner), nof_launches, nof_streams = _counted(
-        lambda: bench.bench_nof("cuda"))
+    (nof, runner), nof_counts = _counted(lambda: bench.bench_nof("cuda"))
+    nof_launches = nof_counts.launches
     print(json.dumps(nof), flush=True)
-    _check_launches("nof_train_steps_per_sec", nof_launches, nof_streams,
+    _check_launches("nof_train_steps_per_sec", nof_counts,
                     runner.global_step, runner.stream)
     nof_steps = runner.global_step
     del runner
@@ -1510,14 +1675,15 @@ def phase_bench():
                                   seq=seq)
     print(json.dumps(trk), flush=True)
     t3 = time.perf_counter()
-    (pipe, t), pipe_launches, pipe_streams = _counted(
+    (pipe, t), pipe_counts = _counted(
         lambda: bench.bench_pipeline(
             "cuda", BENCH_FIXTURE, n_frames=BENCH_FRAMES,
             warmup=BENCH_WARMUP,
             device_ms_per_step=nof["device_ms_per_step"],
             device_ms_per_frame=trk["device_ms_per_frame"], seq=seq))
     print(json.dumps(pipe), flush=True)
-    _check_launches("pipeline_fps", pipe_launches, pipe_streams,
+    pipe_launches = pipe_counts.launches
+    _check_launches("pipeline_fps", pipe_counts,
                     pipe["nof_steps_trained"], t.nerf.stream)
     del t
     torch.cuda.empty_cache()
@@ -1542,11 +1708,17 @@ def phase_bench():
           f"pipeline line {time.perf_counter() - t3:.1f} s); scatter_rows "
           f"launches: NOF line "
           f"{nof_launches} for {nof_steps} steps, pipeline line "
-          f"{pipe_launches} for {pipe['nof_steps_trained']} steps, all on "
-          f"the runners' streams", flush=True)
+          f"{pipe_launches} for {pipe['nof_steps_trained']} steps; hashgrid "
+          f"launches: NOF line {nof_counts.encoder_launches}, pipeline line "
+          f"{pipe_counts.encoder_launches} "
+          f"({pipe_counts.forward_only} forward-only calls); all "
+          f"on the runners' streams", flush=True)
     return {"nof": nof, "tracking": trk, "pipeline": pipe,
             "nof_launches": nof_launches, "nof_steps": nof_steps,
-            "pipeline_launches": pipe_launches, "seconds": secs}
+            "pipeline_launches": pipe_launches,
+            "encoder_launches": {"nof": nof_counts.encoder_launches,
+                                 "pipeline": pipe_counts.encoder_launches},
+            "seconds": secs}
 
 
 def phase_protocol():
@@ -2245,8 +2417,8 @@ def phase_ho3d_run(video, out_dir, seq, fx, ref_add_mm, n):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    t, launches, streams = _counted(
-        lambda: run_ho3d.run_one_video(video, out_dir))
+    t, counts = _counted(lambda: run_ho3d.run_one_video(video, out_dir))
+    launches, streams = counts.launches, counts.streams
     dt = time.perf_counter() - t0
     st = t.pipeline_stats
     steps = st.get("nof_steps_total", 0)
@@ -2262,6 +2434,7 @@ def phase_ho3d_run(video, out_dir, seq, fx, ref_add_mm, n):
     nerf_stream = t.nerf.stream.cuda_stream
     res = {"frames_per_s": n / dt, "ms_per_frame": 1e3 * dt / n,
            "launches": launches, "nof_steps_total": steps,
+           "encoder_launches": counts.encoder_launches,
            "n_batches": st["n_batches"], "fail": status.count("FAIL"),
            "add_mm": sc["ADD(cm)"] * 10, "adds_mm": sc["ADDS(cm)"] * 10,
            "chamfer_cm": sc["chamfer(cm)"],
@@ -2275,7 +2448,9 @@ def phase_ho3d_run(video, out_dir, seq, fx, ref_add_mm, n):
           f"ORB: {res['frames_per_s']:.4f} frames/s "
           f"{res['ms_per_frame']:.3f} ms/frame; NOF batches "
           f"{st['n_batches']}, steps {steps}; scatter_rows launches "
-          f"{launches}; kernel streams "
+          f"{launches}; hashgrid launches {counts.encoder_launches} "
+          f"({counts.forward_only} forward-only calls); kernel "
+          f"streams "
           f"{ {('nof' if k == nerf_stream else k): v for k, v in streams.items()} }; "
           f"peak {res['peak_gib']:.3f} GiB; FAIL {res['fail']}; mean ADD "
           f"{res['add_mm']:.4f} mm ADD-S {res['adds_mm']:.4f} mm (phase 9 "
@@ -2300,6 +2475,7 @@ def phase_ho3d_run(video, out_dir, seq, fx, ref_add_mm, n):
         raise AssertionError(f"run_ho3d: {launches} scatter_rows launches "
                              f"for {steps} NOF steps on streams "
                              f"{dict(streams)} (the runner's: {nerf_stream})")
+    counts.check_encoder("run_ho3d", steps, nerf_stream)
     return res
 
 
@@ -2333,9 +2509,11 @@ def phase_ho3d_refine(video, out_dir, seq, fx, n):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    t, launches, streams = _counted(
+    t, counts = _counted(
         lambda: run_ho3d.run_one_video_global_nerf(
             video, out_dir, refine_overrides={"n_step": HO3D_REFINE_STEPS}))
+    launches, streams = counts.launches, counts.streams
+    enc = counts.encoder_launches
     wall = time.perf_counter() - t0
     st, cfg, runner = t.refine_stats, t.nerf.cfg, t.nerf
     folder = os.path.join(out_dir, "SYN1")
@@ -2352,7 +2530,7 @@ def phase_ho3d_refine(video, out_dir, seq, fx, n):
     nerf_stream = runner.stream.cuda_stream
     layout = runner.spec.grid.layout()
     res = {"steps": st["steps"], "steps_per_s": st["steps_per_s"],
-           "launches": launches, "wall_s": wall,
+           "launches": launches, "encoder_launches": enc, "wall_s": wall,
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "n_rows": runner.spec.grid.total_rows,
            "chamfer_cm": sc["chamfer(cm)"], "add_mm": sc["ADD(cm)"] * 10,
@@ -2368,7 +2546,8 @@ def phase_ho3d_refine(video, out_dir, seq, fx, n):
           f"mesh_resolution {cfg['mesh_resolution']}: "
           f"{st['steps_per_s']:.3f} steps/s, wall {wall:.3f} s, peak "
           f"{res['peak_gib']:.3f} GiB; scatter_rows launches {launches}; "
-          f"kernel streams "
+          f"hashgrid launches {enc} ({counts.forward_only} "
+          f"forward-only calls); kernel streams "
           f"{ {('nof' if k == nerf_stream else k): v for k, v in streams.items()} }; "
           f"marching {marching_tetrahedra.last_path}; mesh "
           f"{res['mesh_faces']} faces, Chamfer {res['chamfer_cm']:.4f} cm; "
@@ -2379,6 +2558,7 @@ def phase_ho3d_refine(video, out_dir, seq, fx, n):
         raise AssertionError(f"HO3D refine: {launches} scatter_rows launches "
                              f"for {st['steps']} steps, on streams "
                              f"{dict(streams)} (the runner's: {nerf_stream})")
+    counts.check_encoder("HO3D refine", st["steps"], nerf_stream)
     if marching_tetrahedra.last_path != "native" or \
             cfg["mesh_resolution"] != 0.003:
         raise AssertionError(f"HO3D refine: marching "
@@ -2667,8 +2847,8 @@ def phase_placement(seq, feats, fx, nerf_device):
     cfg_n = online_nerf_config(default_track_config(), sync_max_delay=0,
                                n_step=PLACE_STEPS, nerf_device=nerf_device)
     t0 = time.perf_counter()
-    t, frames, dt, launches, streams = run_video(seq, feats, cfg_n,
-                                                 PLACE_FRAMES)
+    t, frames, dt, counts = run_video(seq, feats, cfg_n, PLACE_FRAMES)
+    launches, streams = counts.launches, counts.streams
     want = torch.device("cuda", nerf_device)
     steps = t.pipeline_stats.get("nof_steps_total", 0)
     nerfed = sum(kf.nerfed for kf in t.bundler.keyframes)
@@ -2691,6 +2871,8 @@ def phase_placement(seq, feats, fx, nerf_device):
         raise AssertionError(f"placement: {launches} scatter_rows launches "
                              f"for {steps} NOF steps, streams "
                              f"{dict(streams)}")
+    counts.check_encoder(f"placement nerf_device={nerf_device}", steps,
+                         nerf_stream.cuda_stream)
     if not nerfed or not finite:
         raise AssertionError(f"placement: {nerfed} keyframes nerfed, poses "
                              f"finite {finite}")
@@ -2721,15 +2903,12 @@ def phase_dp(seq, feats, fx):
                                  f"gradients bit-equal {same}")
 
     # 10 + 100 steps each: DP with its launches counted, then single
-    streams, undo = count_streams()
-    try:
+    with KernelCounts() as counts:
         torch.cuda.synchronize()
-        launches0 = scatter_launches()
         m0, _ = _train_timed(dp, DP_WARMUP)
         m1, dt_dp = _train_timed(dp, DP_STEPS)
-        launches = scatter_launches() - launches0
-    finally:
-        undo()
+    launches, streams = counts.launches, counts.streams
+    enc, enc_streams = counts.encoder_launches, counts.encoder_streams
     s0, _ = _train_timed(sd, DP_WARMUP)
     s1, dt_sd = _train_timed(sd, DP_STEPS)
     n_dp = DP_WARMUP + DP_STEPS
@@ -2743,7 +2922,7 @@ def phase_dp(seq, feats, fx):
     red_ms, red_bytes = _reduction_ms(dp)
     res.update({
         "replicas": [str(d) for d in shared], "dp_steps": n_dp,
-        "dp_launches": launches,
+        "dp_launches": launches, "dp_encoder_launches": enc,
         "dp_steps_per_s": DP_STEPS / dt_dp, "sd_steps_per_s": DP_STEPS / dt_sd,
         "dp_host_ms_a_step": 1e3 * dt_dp / DP_STEPS,
         "sd_host_ms_a_step": 1e3 * dt_sd / DP_STEPS,
@@ -2763,7 +2942,9 @@ def phase_dp(seq, feats, fx):
           f"{f_dp:.5f} (last 10) against {loss_sd[0]:.5f} -> {f_sd:.5f}; "
           f"replicas bit-equal {equal}; scatter_rows launches {launches} for "
           f"{n_dp} steps, by stream "
-          f"{ {('replica %d' % rep_streams.index(k) if k in rep_streams else k): v for k, v in streams.items()} }",
+          f"{ {('replica %d' % rep_streams.index(k) if k in rep_streams else k): v for k, v in streams.items()} }"
+          f"; hashgrid launches {enc}, by stream "
+          f"{ {('replica %d' % rep_streams.index(k) if k in rep_streams else k): v for k, v in enc_streams.items()} }",
           flush=True)
     if not (np.isfinite(loss_dp).all() and np.isfinite(loss_sd).all()):
         raise AssertionError("dp: non-finite loss")
@@ -2781,6 +2962,13 @@ def phase_dp(seq, feats, fx):
                              f"{n_dp} steps x {len(shared)} replicas, by "
                              f"stream {dict(streams)}, replicas' streams "
                              f"{rep_streams}")
+    # eager steps: every encoder launch is made from Python, two a step on
+    # each replica's stream
+    counts.check_encoder("dp", n_dp * len(shared))
+    if dict(enc_streams) != {k: 2 * n_dp for k in rep_streams}:
+        raise AssertionError(f"dp: hashgrid launches by stream "
+                             f"{dict(enc_streams)} for {n_dp} steps on each "
+                             f"of the replicas' streams {rep_streams}")
 
     # the kernel on one DP step's rows, each replica's call
     errs = []
@@ -2966,9 +3154,11 @@ def main():
     runner = make_runner()
     scatter = phase_scatter(runner.spec.grid.total_rows)
     real = phase_scatter_real(runner)
-    grad_err = phase_hashgrid_grad(runner.spec.grid)
+    encoder = phase_encoder()
+    grad_err = max(max(c["table_grad_max_abs_err"], c["x_grad_max_abs_err"])
+                   for c in encoder.values())
     phase_step_vs_cpu(runner)
-    launches = phase_main(runner)
+    launches, enc_launches = phase_main(runner)
     sampler_in = record_sampler_inputs(runner)
     if "--profile" in sys.argv[1:]:
         phase_profile(runner)
@@ -3085,8 +3275,23 @@ def main():
             "online_launches": ho3d["run"]["launches"],
             "online_nof_steps": ho3d["run"]["nof_steps_total"],
             "hashed_levels": ho3d["refine"]["hashed_levels"],
-            **{k: ho3d["refine"]["kernel"][k] for k in KERNEL_KEYS}}}]}),
-        flush=True)
+            **{k: ho3d["refine"]["kernel"][k] for k in KERNEL_KEYS}}}, {
+        "name": "hashgrid_forward_kernel, hashgrid_backward_kernel",
+        "route": "cuda", "source": "bundlesdf_tpu_torch/csrc/hashgrid.cu",
+        "replaces": "none (bundlesdf_tpu/ops/hashgrid.py is jnp)",
+        # each path's launches: 2 a step + 1 a forward-only call
+        "launches": {"main_path": enc_launches,
+                     "full_path": strict["encoder_launches"],
+                     "threaded_path": threaded["encoder_launches"],
+                     "bench_nof_line": bench["encoder_launches"]["nof"],
+                     "bench_pipeline_line":
+                         bench["encoder_launches"]["pipeline"],
+                     "refine": refine["encoder_launches"],
+                     "ho3d_online": ho3d["run"]["encoder_launches"],
+                     "ho3d_refine": ho3d["refine"]["encoder_launches"],
+                     "dp": dp["dp_encoder_launches"]},
+        # phase 4: each cell's points a step and grid
+        "cells": encoder}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

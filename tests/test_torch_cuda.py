@@ -1,7 +1,9 @@
 """The port on the card: the `scatter_rows` CUDA kernel against its plain
 PyTorch version (uniform rows, and runs of equal rows at the encoder's
 stride, with and without the `group` hint), the hash-grid gradient through
-it against PyTorch's own gather backward, the wrapper's input checks, and the tracker programs
+it against PyTorch's own gather backward, the hash-grid encoder's two
+kernels against the plain path at the three configurations' grids, the
+wrappers' input checks, and the tracker programs
 (depth chain into the pool, fused ORB match + lift + RANSAC, bundle
 adjustment) and the port's ORB detector (`matcher/orb.py`, with a mask,
 through the matcher's stream) on the card against the same calls on the
@@ -12,10 +14,13 @@ skips without one.
 This file imports no jax, so it also runs where jax is not installed:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
 
+from bundlesdf_tpu_torch.ops import hashgrid as hg
 from bundlesdf_tpu_torch.ops.hashgrid import (HashGridSpec, hashgrid_corners,
                                               hashgrid_encode)
 from bundlesdf_tpu_torch.ops.scatter import scatter_rows, scatter_rows_torch
@@ -34,8 +39,8 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _launches():
-    return profiling.snapshot().get("scatter_rows.launches", (0, 0.0))[0]
+def _launches(name="scatter_rows.launches"):
+    return profiling.snapshot().get(name, (0, 0.0))[0]
 
 
 def _case(M, D, C, seed):
@@ -169,6 +174,164 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         scatter_rows(v, r.cpu(), 4)
     with pytest.raises(ValueError):
         scatter_rows(v, r, 4, group=0)
+
+
+# the three configurations' grids as they run: `custom` online (4 dense
+# levels), `custom` refine (16 dense), `ho3d` refine (16, levels 12-15
+# hashed into 2^24 rows each)
+_GRIDS = {"online": dict(),
+          "custom_refine": dict(n_levels=16, finest_res=256,
+                                log2_hashmap_size=24),
+          "ho3d_refine": dict(n_levels=16, finest_res=512,
+                              log2_hashmap_size=24)}
+
+
+def _encoder_case(spec, device, seed=3, n_rays=128, n_samples=64):
+    """Ray-ordered points, some beyond [-1, 1], points on cell faces of
+    every level and on the cube's faces; a table; a cotangent."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    o = torch.rand((n_rays, 1, 3), generator=g, device=device) - 0.5
+    d = torch.randn((n_rays, 1, 3), generator=g, device=device)
+    t = torch.sort(torch.rand((n_rays, n_samples, 1), generator=g,
+                              device=device) * 1.2, dim=1).values
+    pts = [(o + d / d.norm(dim=-1, keepdim=True) * t).reshape(-1, 3)]
+    for res, _, _, _ in spec.layout():
+        k = torch.randint(0, res + 1, (16, 3), generator=g, device=device)
+        pts.append(2.0 * k.float() / res - 1.0)
+    pts.append(torch.tensor([[-1, 1, 0], [1, -1, 1], [-1.5, 0.2, 2.0]],
+                            dtype=torch.float32, device=device))
+    x = torch.cat(pts)
+    table = torch.rand((spec.total_rows, spec.level_dim), generator=g,
+                       device=device) * 0.2 - 0.1
+    cot = torch.randn((x.shape[0], spec.out_dim), generator=g, device=device)
+    return x, table, cot
+
+
+def _row_bound(vals, rows, n_rows):
+    """Two float32 sums of a row's n_r entries in any orders lie within
+    2 n_r u sum|v| of each other (u = 2^-24)."""
+    ones = torch.ones((rows.shape[0], 1), device=rows.device)
+    n = scatter_rows_torch(ones, rows, n_rows)
+    return 2.0 ** -23 * 1.01 * n * scatter_rows_torch(vals.abs(), rows,
+                                                      n_rows)
+
+
+@pytest.mark.parametrize("table_bf16", [False, True])
+@pytest.mark.parametrize("grid", list(_GRIDS))
+def test_encoder_kernels_match_plain(cuda_device, grid, table_bf16,
+                                     monkeypatch):
+    """The forward within float32 summation order of the plain path's; the
+    scatter's input (values, rows) bit-equal to the plain path's and to
+    the backward's torch twin; the table gradient within the atomics'
+    order; dx within 1e-5 of autograd's and bit-equal to the twin's; two
+    kernel launches, one scatter launch."""
+    spec = HashGridSpec(**_GRIDS[grid], table_bf16=table_bf16)
+    x0, table0, cot = _encoder_case(spec, cuda_device)
+    seen, orig = [], hg.scatter_rows
+
+    def recorder(vals, rows, n_rows, group=1):
+        seen.append((vals.clone(), rows.clone(), n_rows, group))
+        return orig(vals, rows, n_rows, group=group)
+
+    monkeypatch.setattr(hg, "scatter_rows", recorder)
+    got = {}
+    for name, encode in (("kernel", hashgrid_encode),
+                         ("plain", hg.hashgrid_encode_torch)):
+        table = table0.clone().requires_grad_()
+        x = x0.clone().requires_grad_()
+        n0, s0 = _launches("hashgrid.launches"), _launches()
+        out = encode(table, x, spec)
+        torch.sum(out * cot).backward()
+        torch.cuda.synchronize()
+        got[name] = (out.detach(), table.grad, x.grad,
+                     _launches("hashgrid.launches") - n0, _launches() - s0)
+    out_k, dt_k, dx_k, n_k, s_k = got["kernel"]
+    out_p, dt_p, dx_p, n_p, s_p = got["plain"]
+    assert (n_k, s_k, n_p, s_p) == (2, 1, 0, 1)
+    # 8 terms: two orders within 16 u sum|f wc| of each other
+    mag = hg.hashgrid_encode_torch(table0.abs(), x0, spec)
+    assert torch.all((out_k - out_p).abs()
+                     <= 1e-6 * out_p.abs() + 16 * 2.0 ** -24 * mag)
+    (v_k, r_k, n_rows, group), (v_p, r_p, _, _) = seen
+    assert (n_rows, group) == (spec.total_rows, spec.n_levels * 8)
+    assert torch.equal(v_k, v_p) and torch.equal(r_k, r_p)
+    v_t, r_t, dx_t = hg.hashgrid_encode_backward_torch(table0, x0, cot, spec)
+    assert torch.equal(v_k, v_t) and torch.equal(r_k, r_t)
+    assert torch.equal(dx_k, dx_t)
+    assert torch.all((dt_k - dt_p).abs() <= _row_bound(v_k, r_k, n_rows))
+    torch.testing.assert_close(dx_k, dx_p, rtol=1e-5,
+                               atol=1e-5 * float(dx_p.abs().max()))
+
+
+@pytest.mark.parametrize("table_bf16", [False, True])
+@pytest.mark.parametrize("C", [1, 4, 8])
+def test_encoder_kernels_at_other_widths(cuda_device, C, table_bf16):
+    """The kernels' other feature widths, at a grid with two hashed
+    levels: the forward within summation order of the plain path's, the
+    backward's values, rows and dx bit-equal to its torch twin's."""
+    spec = HashGridSpec(n_levels=4, level_dim=C, base_res=8, finest_res=48,
+                        log2_hashmap_size=14, table_bf16=table_bf16)
+    x, table, cot = _encoder_case(spec, cuda_device, seed=C)
+    out_p = hg.hashgrid_encode_torch(table, x, spec)
+    mag = hg.hashgrid_encode_torch(table.abs(), x, spec)
+    assert torch.all((hg.hashgrid_encode_cuda(table, x, spec) - out_p).abs()
+                     <= 1e-6 * out_p.abs() + 16 * 2.0 ** -24 * mag)
+    got = hg.hashgrid_encode_backward_cuda(table, x, cot, spec)
+    want = hg.hashgrid_encode_backward_torch(table, x, cot, spec)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_encoder_kernels_take_only_the_gradients_asked(cuda_device):
+    """Without the point gradient, without the table gradient (no scatter)
+    and without autograd (the forward alone): the same numbers, one launch
+    a kernel run."""
+    spec = HashGridSpec(**_GRIDS["ho3d_refine"], table_bf16=True)
+    x, table0, cot = _encoder_case(spec, cuda_device, seed=4)
+    vals, rows, dx = hg.hashgrid_encode_backward_cuda(table0, x, cot, spec)
+    n0, s0 = _launches("hashgrid.launches"), _launches()
+    table = table0.clone().requires_grad_()
+    torch.sum(hashgrid_encode(table, x, spec) * cot).backward()
+    assert torch.all((table.grad - scatter_rows_torch(vals, rows,
+                                                      spec.total_rows)).abs()
+                     <= _row_bound(vals, rows, spec.total_rows))
+    xg = x.clone().requires_grad_()
+    torch.sum(hashgrid_encode(table0, xg, spec) * cot).backward()
+    assert torch.equal(xg.grad, dx)
+    with torch.no_grad():
+        out = hashgrid_encode(table0, x, spec)
+    assert torch.equal(out, hg.hashgrid_encode_cuda(table0, x, spec))
+    assert _launches("hashgrid.launches") - n0 == 2 + 2 + 1 + 1
+    assert _launches() - s0 == 1
+    v, r, d = hg.hashgrid_encode_backward_cuda(table0, x, cot, spec,
+                                               x_grad=False)
+    assert d is None and torch.equal(v, vals) and torch.equal(r, rows)
+    v, r, d = hg.hashgrid_encode_backward_cuda(table0, x, cot, spec,
+                                               table_grad=False)
+    assert v is None and r is None and torch.equal(d, dx)
+
+
+def test_encoder_kernels_reject_what_they_do_not_take(cuda_device):
+    spec = HashGridSpec(n_levels=4, level_dim=2, base_res=8, finest_res=48,
+                        log2_hashmap_size=14)
+    table = torch.zeros((spec.total_rows, 2), device=cuda_device)
+    x = torch.zeros((8, 3), device=cuda_device)
+    with pytest.raises(TypeError):
+        hashgrid_encode(table.double(), x, spec)
+    with pytest.raises(ValueError):
+        hashgrid_encode(table[:-1], x, spec)
+    with pytest.raises(ValueError):
+        hashgrid_encode(torch.zeros((spec.total_rows, 3), device=cuda_device),
+                        x, replace(spec, level_dim=3))
+    with pytest.raises(ValueError):
+        hashgrid_encode(table, x.cpu(), spec)
+    with pytest.raises(ValueError):
+        hashgrid_encode(table, torch.zeros((8, 2), device=cuda_device), spec)
+    many = HashGridSpec(n_levels=17, base_res=4, finest_res=32,
+                        log2_hashmap_size=16)
+    with pytest.raises(ValueError):
+        hashgrid_encode(torch.zeros((many.total_rows, 2), device=cuda_device),
+                        x, many)
 
 
 # ---------------------------------------------------------------------------
@@ -464,15 +627,18 @@ def test_graph_recaptures_when_its_tensors_are_rebound(cuda_device):
 
 
 def test_replayed_steps_count_their_kernel_launches(cuda_device):
-    """`scatter_rows.launches` counts launches on the card: none for a
-    capture, one for each replayed step."""
+    """`scatter_rows.launches` and `hashgrid.launches` count launches on
+    the card: none for a capture, one scatter and two encoder kernels (the
+    forward and the backward) for each step, eager or replayed."""
     from nof_tiny import tiny_runner
     r = tiny_runner(device=cuda_device)
-    n0 = _launches()
+    n0, h0 = _launches(), _launches("hashgrid.launches")
     r.train(n_steps=1)
     assert _launches() - n0 == 1
+    assert _launches("hashgrid.launches") - h0 == 2
     r.train(n_steps=6)
     assert _launches() - n0 == 7
+    assert _launches("hashgrid.launches") - h0 == 14
 
 
 def test_host_pull_wait_is_its_span(cuda_device):

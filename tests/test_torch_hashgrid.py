@@ -169,3 +169,165 @@ def test_ray_points_repeat_rows_at_stride_l8():
     assert mean_run[0] > 1.0
     # coarser levels, longer runs
     assert torch.all(mean_run[:-1] > mean_run[1:])
+
+
+# The three configurations' grids: the online one as it is, and the two
+# refines' level counts and pattern of dense and hashed levels at small
+# tables (`custom`: 16 dense levels; `ho3d`: levels 12-15 hashed).
+_GRIDS = {
+    "online": dict(),
+    "refine_dense16": dict(n_levels=16, level_dim=2, base_res=4,
+                           finest_res=32, log2_hashmap_size=16),
+    "refine_hashed4": dict(n_levels=16, level_dim=2, base_res=4,
+                           finest_res=64, log2_hashmap_size=15),
+}
+
+
+def test_the_grids_have_the_configurations_patterns():
+    dense = {k: [d for _, d, _, _ in thg.HashGridSpec(**kw).layout()]
+             for k, kw in _GRIDS.items()}
+    assert dense == {"online": [True] * 4, "refine_dense16": [True] * 16,
+                     "refine_hashed4": [True] * 12 + [False] * 4}
+    full = {"refine_dense16": dict(n_levels=16, finest_res=256,
+                                   log2_hashmap_size=24),
+            "refine_hashed4": dict(n_levels=16, finest_res=512,
+                                   log2_hashmap_size=24)}
+    for k, kw in full.items():
+        assert [d for _, d, _, _ in thg.HashGridSpec(**kw).layout()] \
+            == dense[k]
+
+
+def _edge_points(spec, n_rays=48, n_samples=32, seed=6):
+    """Ray-ordered points, some beyond [-1, 1], plus points on cell faces
+    of every level and on the cube's faces: where floor, clamp and the
+    clamp's gradient mask decide."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-0.5, 0.5, (n_rays, 1, 3))
+    d = rng.standard_normal((n_rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.sort(rng.uniform(0.0, 1.2, (n_rays, n_samples, 1)), axis=1)
+    pts = [(o + d * t).reshape(-1, 3)]
+    for res, _, _, _ in spec.layout():
+        k = rng.integers(0, res + 1, (16, 3))
+        pts.append(2.0 * k / res - 1.0)                  # on cell faces
+    pts.append(np.array([[-1, 1, 0], [1, -1, 1], [-1.0, -1.0, -1.0],
+                         [1.0, 1.0, 1.0], [-1.5, 0.2, 2.0]]))
+    return np.concatenate(pts).astype(np.float32)
+
+
+def _record_scatter(monkeypatch):
+    seen, orig = [], thg.scatter_rows
+
+    def recorder(vals, rows, n_rows, group=1):
+        seen.append((vals.clone(), rows.clone(), n_rows, group))
+        return orig(vals, rows, n_rows, group=group)
+
+    monkeypatch.setattr(thg, "scatter_rows", recorder)
+    return seen
+
+
+def _launches():
+    from bundlesdf_tpu_torch.utils import profiling
+    return profiling.snapshot().get("hashgrid.launches", (0, 0.0))[0]
+
+
+@pytest.mark.parametrize("table_bf16", [False, True])
+@pytest.mark.parametrize("grid", list(_GRIDS))
+def test_backward_twin_matches_autograd(grid, table_bf16, monkeypatch):
+    """`hashgrid_encode_backward_torch`, the kernels' backward written out,
+    against autograd through the plain path: the scatter's input (values
+    rounded to the gather's type, rows) bit-equal, hence the same table
+    gradient; dx within float32 summation order, zero where the clamp
+    holds a coordinate."""
+    spec = thg.HashGridSpec(**_GRIDS[grid], table_bf16=table_bf16)
+    x = torch.from_numpy(_edge_points(spec)).requires_grad_()
+    table = torch.from_numpy(_table(spec)).requires_grad_()
+    cot = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (x.shape[0], spec.out_dim)).astype(np.float32))
+    seen = _record_scatter(monkeypatch)
+    torch.sum(thg.hashgrid_encode(table, x, spec) * cot).backward()
+    vals, rows, dx = thg.hashgrid_encode_backward_torch(
+        table.detach(), x.detach(), cot, spec)
+    (v_ag, r_ag, n_rows, group), = seen
+    assert vals.dtype == (torch.bfloat16 if table_bf16 else torch.float32)
+    assert torch.equal(vals, v_ag) and torch.equal(rows, r_ag)
+    assert (n_rows, group) == (spec.total_rows, spec.n_levels * 8)
+    assert torch.equal(thg.scatter_rows(vals, rows, n_rows, group=group),
+                       table.grad)
+    scale = float(x.grad.abs().max())
+    torch.testing.assert_close(dx, x.grad, rtol=1e-5, atol=1e-6 * scale)
+    outside = ((x.detach() < -1) | (x.detach() > 1))
+    assert outside.any() and torch.all(dx[outside] == 0)
+    assert torch.all(x.grad[outside] == 0)
+    assert torch.all(dx[~outside] != 0)
+
+
+@pytest.mark.parametrize("grid", list(_GRIDS))
+def test_backward_twin_table_gradient_matches_jax(grid):
+    """The twin's table gradient (its values and rows through the scatter)
+    against `jax.grad` of the JAX encoder, float32 both sides."""
+    kw = _GRIDS[grid]
+    spec = thg.HashGridSpec(**kw)
+    jspec = jhg.HashGridSpec(**kw, scatter_bf16=False, table_bf16=False)
+    x = _ray_points(n_rays=32, n_samples=24, seed=8)
+    table = _table(spec, seed=9)
+    cot = np.random.default_rng(10).standard_normal(
+        (x.shape[0], spec.out_dim)).astype(np.float32)
+    g_j = jax.grad(lambda tab: jnp.sum(
+        jhg.hashgrid_encode(tab, jnp.asarray(x), jspec) * cot))(
+        jnp.asarray(table))
+    vals, rows, _ = thg.hashgrid_encode_backward_torch(
+        torch.from_numpy(table), torch.from_numpy(x), torch.from_numpy(cot),
+        spec)
+    got = thg.scatter_rows(vals, rows, spec.total_rows,
+                           group=spec.n_levels * 8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(g_j), rtol=1e-4,
+                               atol=1e-6)
+    assert np.abs(np.asarray(g_j)).max() > 0
+
+
+@pytest.mark.parametrize("grid", list(_GRIDS))
+def test_encode_on_the_cpu_takes_the_plain_path(grid):
+    """On CPU tensors `hashgrid_encode` is `hashgrid_encode_torch`, bit for
+    bit, its gradient through `GatherRows`; no kernel is launched."""
+    spec = thg.HashGridSpec(**_GRIDS[grid], table_bf16=True)
+    x = torch.from_numpy(_edge_points(spec))
+    table = torch.from_numpy(_table(spec)).requires_grad_()
+    n0 = _launches()
+    out = thg.hashgrid_encode(table, x, spec)
+    assert out.grad_fn is not None and "HashGridKernels" not in \
+        type(out.grad_fn).__name__
+    assert torch.equal(out, thg.hashgrid_encode_torch(table, x, spec))
+    out.sum().backward()
+    assert table.grad.abs().sum() > 0
+    assert _launches() == n0
+
+
+@pytest.mark.parametrize("grid", list(_GRIDS) + ["refine_custom",
+                                                 "refine_ho3d"])
+def test_kernel_layout_is_the_spec_layout(grid):
+    """What the kernels get of a spec: per-level resolutions and offsets,
+    the dense levels as bits, the hash mask; the configurations' refine
+    grids fit the kernels' 16 levels and int32 rows."""
+    kw = {"refine_custom": dict(n_levels=16, finest_res=256,
+                                log2_hashmap_size=24),
+          "refine_ho3d": dict(n_levels=16, finest_res=512,
+                              log2_hashmap_size=24)}.get(grid, _GRIDS.get(grid))
+    spec = thg.HashGridSpec(**kw)
+    res, offs, dense, mask = thg.kernel_layout(spec)
+    layout = spec.layout()
+    assert list(res) == [r for r, _, _, _ in layout]
+    assert list(offs) == [o for _, _, _, o in layout]
+    assert [bool(dense >> lvl & 1) for lvl in range(len(layout))] \
+        == [d for _, d, _, _ in layout]
+    assert mask == spec.table_size - 1
+    assert spec.n_levels <= thg.MAX_LEVELS and spec.total_rows < 2 ** 31
+
+
+def test_points_and_table_on_two_devices_raise():
+    """Tensors that are not both on the CPU go to the kernels, which take
+    only CUDA tensors: no silent fallback to the plain path."""
+    spec = thg.HashGridSpec(**_SPEC)
+    table = torch.from_numpy(_table(spec))
+    with pytest.raises(ValueError, match="CUDA device"):
+        thg.hashgrid_encode(table, torch.zeros((4, 3), device="meta"), spec)
