@@ -40,12 +40,40 @@ import glob
 import json
 import logging
 import os
+import sys
 import tempfile
 import time
 
 import numpy as np
 
 from bundlesdf_tpu_torch.mesh import Mesh
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def synthetic():
+    """The repo's synthetic sequences (`tests/synthetic.py`, pure numpy)."""
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import synthetic as syn
+    return syn
+
+
+def replay_matcher(orb_features, id_strs, device):
+    """An `OrbMatcher` that replays the features stored per frame, in
+    sequence order, in @orb_features (an .npz of
+    `tests/fixtures/gen_tracker_orb.py`) for the frames @id_strs."""
+    from bundlesdf_tpu_torch.matcher.classical import OrbMatcher
+    fx = np.load(orb_features)
+    if len(fx["counts"]) < len(id_strs):
+        raise ValueError(f"{orb_features} holds {len(fx['counts'])} frames, "
+                         f"the sequence {len(id_strs)}")
+    offs = np.concatenate([[0], np.cumsum(fx["counts"])])
+    feats = {id_str: (fx["uv"][offs[i]:offs[i + 1]],
+                      fx["des"][offs[i]:offs[i + 1]])
+             for i, id_str in enumerate(id_strs)}
+    return OrbMatcher(device=device, detector=lambda f: feats[f.id_str])
 
 
 # the box cluster rendered by cube_orbit_sequence (tests/synthetic.py)
@@ -99,7 +127,6 @@ def write_sequence(video_dir, n_frames, H, W, noise, obj_size=0.08,
                    protocol="easy"):
     """Render the protocol's sequence and write it to @video_dir
     (`write_dataset`). Returns the sequence."""
-    from bundlesdf_tpu_torch.bench import synthetic
     syn = synthetic()
     if protocol == "translation":
         # translation-dominant stress geometry: a lateral slide at fixed
@@ -290,7 +317,6 @@ def main(argv=None):
             matcher = GtMatcher({id_str: seq["cam_in_obs"][i] for i, id_str
                                  in enumerate(seq["id_strs"])})
         elif args.orb_features:
-            from bundlesdf_tpu_torch.bench import replay_matcher
             matcher = replay_matcher(args.orb_features, seq["id_strs"],
                                      args.device)
         run_one_video(video_dir, out_folder, stride=args.stride,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (`bundlesdf_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py
 
 Phases, one printed line each (or a few), any failure exits non-zero:
   1. the card: torch/CUDA versions, `nvidia-smi` name and power limit;
@@ -25,7 +25,8 @@ Phases, one printed line each (or a few), any failure exits non-zero:
      CPU path is the one held against the JAX package by
      tests/test_torch_*.py);
   5. the NOF main path: `NofRunner` (built without `device`: the card is
-     the default) at the online workload (bench.py's configuration) trains
+     the default) at the online workload (the NOF configuration of the
+     JAX package's `bench.py`) trains
      10 + 50 steps; steps/s, memory, losses, and the kernels' launches
      (one scatter a step, with group L*8; two encoder launches a step);
      (before phase 6, the host reads a frame of the orbit written as a
@@ -63,14 +64,6 @@ Phases, one printed line each (or a few), any failure exits non-zero:
      online run's, the texture's filled share; then the kernel against
      its plain version on the rows of one refine step (83,886,080
      entries into 39,601,891 rows), timed as in phase 3;
- 11. the bench (`bundlesdf_tpu_torch/bench.py`, the port of `bench.py`):
-     its NOF line at full length, its tracking and pipeline lines on the
-     first 30 of their 70 frames with a warm-up of 15 (ORB features from
-     tests/fixtures/tracker_orb_bench70.npz); each record printed, device
-     times from profiler unions, the kernels' launches in the NOF and
-     pipeline lines (= that line's NOF steps, the encoder's 2 a step + 1 a
-     forward-only query, on the runner's stream),
-     the pipeline's frame rate at most its device floor;
  12. the protocol driver (`bundlesdf_tpu_torch/benchmark_synthetic.py`)
      on the whole 120-frame easy orbit, `--no_nerf --skip_refine`, ORB
      features replayed from tests/fixtures/tracker_orb_easy120.npz: its
@@ -90,8 +83,7 @@ Phases, one printed line each (or a few), any failure exits non-zero:
  15. LoFTR (`matcher/pairing.py`, `matcher/loftr.py`, no hand kernel):
      the pairing warp card = CPU exactly and the full-width net
      (LoftrConfig(), seeded, match_thr 0) card = CPU at f32 on 4 pairs of
-     the orbit at 400x400, bf16 against f32 on the card;
-     `bench_loftr`'s four `loftr_pairs_per_sec` lines; then the tracker
+     the orbit at 400x400, bf16 against f32 on the card; then the tracker
      through LoFTR: run_custom's track config over the 30 frames, NOF off
      (frames/s, pairs a frame, device ms of the warp and the net, peak
      memory, FAILs, finite poses);
@@ -131,10 +123,9 @@ Phases, one printed line each (or a few), any failure exits non-zero:
      bit-equal to `occupied_sampler_state` + `draw_occupied_samples`
      under one seeded CUDA generator when perturbed;
  19. a JSON line of per-kernel results, then the final status line.
---profile adds torch.profiler tables of 5 NOF steps, of 5 tracked frames,
-of 20 refine steps, of the online loop's first NOF batch and of one LoFTR
-predict of 8 pairs (f32 and bf16). Needs a CUDA
-card, nvcc, g++ (the native library) and cc (the JPEG decoder); refuses
+There is no phase 11: the numbers stay those that PERF.md cites. The
+port's end-to-end and per-layer timings are `perfbench/run.py`'s. Needs a
+CUDA card, nvcc, g++ (the native library) and cc (the JPEG decoder); refuses
 to run on the CPU, and fails if jax, cv2, PIL, imageio or pandas was
 imported.
 """
@@ -689,9 +680,10 @@ def phase_step_vs_cpu(runner):
 
 
 def runner_inputs(n_frames=5):
-    """The online workload's NofRunner inputs, as bench.py builds them, on
-    the first @n_frames frames of the 480x640 orbit: (cfg, rgbs, depths,
-    masks, poses, K)."""
+    """The online workload's NofRunner inputs (`default_nerf_config()`
+    scaled to the orbit, as the JAX package's `bench.py` builds its NOF
+    line's) on the first @n_frames frames of the 480x640 orbit: (cfg,
+    rgbs, depths, masks, poses, K)."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from synthetic import cube_orbit_sequence
     from bundlesdf_tpu_torch.config import default_nerf_config
@@ -775,22 +767,6 @@ def phase_main(runner):
         raise AssertionError(f"main path: {enc} hashgrid launches for "
                              f"{n_steps} steps; expected 2 a step")
     return launches, enc
-
-
-def phase_profile(runner, n_steps=5):
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        runner.train(n_steps=n_steps)
-        torch.cuda.synchronize()
-    ka = prof.key_averages()
-    table = ka.table(sort_by="cuda_time_total", row_limit=30)
-    print(f"profile of {n_steps} steps, {torch.cuda.get_device_name(0)}\n"
-          f"{table}", flush=True)
-    for e in ka:
-        if "scatter_rows_kernel" in e.key:
-            print(f"profile: {e.key}: {e.count} launches, "
-                  f"{e.device_time_total / e.count:.3f} us device time "
-                  f"each", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1044,7 +1020,7 @@ def phase_tracker_components(seq, feats):
             "bundle_adjust_ms": ms_ba}
 
 
-def _track(seq, feats, n_frames, profile_from=None):
+def _track(seq, feats, n_frames):
     """Tracker-only BundleSdf over @n_frames frames on the card. Returns
     (tracker, frames, seconds from frame 5 to the end)."""
     from bundlesdf_tpu_torch.bundlesdf import BundleSdf
@@ -1060,35 +1036,25 @@ def _track(seq, feats, n_frames, profile_from=None):
                       matcher=matcher)
         if t.device.type != "cuda" or matcher.device.type != "cuda":
             raise AssertionError(f"BundleSdf's default device is {t.device}")
-        frames, prof = [], None
+        frames = []
         for i in range(n_frames):
             if i == 5:
                 torch.cuda.synchronize()
                 t5 = time.perf_counter()
-            if i == profile_from:
-                from torch.profiler import ProfilerActivity, profile
-                prof = profile(activities=[ProfilerActivity.CPU,
-                                           ProfilerActivity.CUDA])
-                prof.__enter__()
-                tp = time.perf_counter()
             frames.append(t.run(seq["colors"][i], seq["depths"][i].copy(),
                                 seq["K"], seq["id_strs"][i],
                                 mask=seq["masks"][i]))
         t.on_finish()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t5
-        if prof is not None:
-            wall = time.perf_counter() - tp
-            prof.__exit__(None, None, None)
-            return t, frames, dt, (prof, wall)
-    return t, frames, dt, None
+    return t, frames, dt
 
 
 def phase_tracker_main(seq, feats, fx):
     from bundlesdf_tpu_torch.eval.metrics import add_err, adi_err
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t, frames, dt, _ = _track(seq, feats, N_TRACK)
+    t, frames, dt = _track(seq, feats, N_TRACK)
     peak = torch.cuda.max_memory_allocated()
     status = np.array([f.status.value for f in frames])
     cam_in_ob = np.array([f.pose_in_model for f in frames])
@@ -1126,27 +1092,6 @@ def phase_tracker_main(seq, feats, fx):
     return {"frames_per_s": n / dt, "ms_per_frame": 1e3 * dt / n,
             "stage_ms": med, "peak_gib": peak / 2 ** 30,
             "add_mm": add.mean() * 1e3, "adds_mm": adds.mean() * 1e3}
-
-
-def phase_tracker_profile(seq, feats):
-    _, _, _, (prof, wall) = _track(seq, feats, 10, profile_from=5)
-    from torch.autograd import DeviceType
-    ka = prof.key_averages()
-    # device-side events only, as the table's own "Self CUDA time total"
-    dev_us = sum(e.self_device_time_total for e in ka
-                 if e.device_type == DeviceType.CUDA
-                 and not e.is_user_annotation)
-    for e in ka:
-        if e.key.startswith("stage:"):
-            print(f"{e.key} ({e.device_type.name} event): calls {e.count}, "
-                  f"host {e.cpu_time_total / 1e3:.3f} ms, device "
-                  f"{e.device_time_total / 1e3:.3f} ms", flush=True)
-    print(f"profile of 5 tracked frames (5-9), "
-          f"{torch.cuda.get_device_name(0)}: wall {wall * 1e3:.3f} ms, "
-          f"device-busy {dev_us / 1e3:.3f} ms ({dev_us / 1e4 / wall:.1f} % "
-          f"of wall)\n"
-          f"{ka.table(sort_by='self_cuda_time_total', row_limit=40)}",
-          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1259,14 +1204,19 @@ class KernelCounts:
                                  f"runner's is {stream}")
 
 
-def run_video(seq, feats, cfg_nerf, n_frames, profile_from=None,
-              out_dir=None):
+def _counted(fn):
+    """fn() with its kernels counted; returns (result, `KernelCounts`)."""
+    with KernelCounts() as counts:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, counts
+
+
+def run_video(seq, feats, cfg_nerf, n_frames, out_dir=None):
     """`BundleSdf.run` over @n_frames with the NOF on (built without
     `device`: the card is the default), then `on_finish`. Returns the
     tracker, its frames, the wall seconds from a device sync to the end of
-    on_finish, and the run's `KernelCounts`. With @profile_from, a
-    torch.profiler of the card's activity runs from that frame to the end
-    and is returned with its wall seconds as a 5th item. With @out_dir the
+    on_finish, and the run's `KernelCounts`. With @out_dir the
     run writes its artifacts there (`SPDLOG` 1, with the two config files
     `run_custom.run_one_video` dumps), for the offline refine."""
     from bundlesdf_tpu_torch.bundlesdf import BundleSdf
@@ -1291,24 +1241,14 @@ def run_video(seq, feats, cfg_nerf, n_frames, profile_from=None,
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            frames, prof = [], None
+            frames = []
             for i in range(n_frames):
-                if i == profile_from:
-                    from torch.profiler import ProfilerActivity, profile
-                    prof = profile(activities=[ProfilerActivity.CUDA])
-                    prof.__enter__()
-                    tp = time.perf_counter()
                 frames.append(t.run(seq["colors"][i], seq["depths"][i].copy(),
                                     seq["K"], seq["id_strs"][i],
                                     mask=seq["masks"][i]))
             t.on_finish()
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            if prof is not None:
-                wall = time.perf_counter() - tp
-                prof.__exit__(None, None, None)
-        if prof is not None:
-            return t, frames, dt, counts, (prof, wall)
     return t, frames, dt, counts
 
 
@@ -1412,29 +1352,6 @@ def phase_video(seq, feats, fx, name, cfg_nerf, n_frames=N_TRACK,
     return t, res
 
 
-def phase_video_profile(seq, feats, n_frames=10, profile_from=5):
-    """Device busy share of the online loop (strict sync): the card's
-    kernels from frame @profile_from through `on_finish` of a
-    @n_frames-frame run, which holds the first NOF batch (501 steps)."""
-    from torch.autograd import DeviceType
-    from bundlesdf_tpu_torch.config import default_track_config
-    cfg = online_nerf_config(default_track_config(), sync_max_delay=0)
-    t, _, _, counts, (prof, wall) = run_video(
-        seq, feats, cfg, n_frames, profile_from=profile_from)
-    ka = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in ka
-                 if e.device_type == DeviceType.CUDA)
-    print(f"profile of the online loop, frames {profile_from}-"
-          f"{n_frames - 1} + on_finish ({t.pipeline_stats['n_batches']} NOF "
-          f"batch(es), {t.pipeline_stats.get('nof_steps_total', 0)} steps, "
-          f"{counts.launches} scatter launches), "
-          f"{torch.cuda.get_device_name(0)}: "
-          f"wall {wall:.3f} s, device-busy {dev_us / 1e6:.3f} s "
-          f"({dev_us / 1e4 / wall:.1f} % of wall)\n"
-          f"{ka.table(sort_by='self_cuda_time_total', row_limit=15)}",
-          flush=True)
-
-
 def phase_mesh_vs_cpu(runner):
     """The card runner's `extract_mesh` against a CPU runner built from the
     same keyframes and given the same trained weights: SDF grid within
@@ -1500,7 +1417,7 @@ def _keyframe_add(seq, mp, ids, cam_in_obs, gt_vis, mesh=None):
                            pred_mesh=mesh)
 
 
-def phase_refine(seq, fx, out_dir, online, profile=False):
+def phase_refine(seq, fx, out_dir, online):
     """`run_custom.run_one_video_global_nerf` (the `--mode global_refine`
     entry point) on phase 9's artifacts at the refine config: steps/s,
     memory, the kernel's launches (= steps) and stream, the artifacts, the
@@ -1595,130 +1512,15 @@ def phase_refine(seq, fx, out_dir, online, profile=False):
     if not res["chamfer_cm"] < CHAMFER_MAX_CM:
         raise AssertionError(f"refine: Chamfer {res['chamfer_cm']} cm (gate "
                              f"{CHAMFER_MAX_CM} cm)")
-    if profile:
-        phase_refine_profile(runner)
     res["kernel"] = phase_scatter_real(runner, name="refine step")
     return res
 
 
-def phase_refine_profile(runner, n_steps=20):
-    """Device-busy share of @n_steps more refine steps of @runner."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        runner.train(n_steps=n_steps)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ka = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in ka
-                 if e.device_type == DeviceType.CUDA)
-    print(f"profile of {n_steps} refine steps, "
-          f"{torch.cuda.get_device_name(0)}: wall {wall * 1e3:.3f} ms "
-          f"({wall * 1e3 / n_steps:.3f} ms/step), device-busy "
-          f"{dev_us / 1e3:.3f} ms ({dev_us / 1e4 / wall:.1f} % of wall)\n"
-          f"{ka.table(sort_by='self_cuda_time_total', row_limit=15)}",
-          flush=True)
-
-
 # ---------------------------------------------------------------------------
-# the bench and the protocol driver (phases 11-12)
+# the protocol driver (phase 12)
 # ---------------------------------------------------------------------------
-BENCH_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
-                             "tracker_orb_bench70.npz")
 EASY_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                             "tracker_orb_easy120.npz")
-BENCH_FRAMES, BENCH_WARMUP = 30, 15
-
-
-def _counted(fn):
-    """fn() with its kernels counted; returns (result, `KernelCounts`)."""
-    with KernelCounts() as counts:
-        out = fn()
-        torch.cuda.synchronize()
-    return out, counts
-
-
-def _check_launches(line, counts, steps, stream):
-    launches, streams = counts.launches, counts.streams
-    if not (steps > 0 and launches == steps):
-        raise AssertionError(f"bench {line}: {launches} scatter_rows launches "
-                             f"for {steps} NOF steps")
-    if set(streams) != {stream.cuda_stream} or \
-            stream.cuda_stream == torch.cuda.default_stream().cuda_stream:
-        raise AssertionError(f"bench {line}: scatter kernel launched on "
-                             f"streams {dict(streams)}, the runner's is "
-                             f"{stream.cuda_stream}")
-    counts.check_encoder(f"bench {line}", steps, stream.cuda_stream)
-
-
-def phase_bench():
-    """The bench's three lines through its own functions: the NOF line as
-    `python -m bundlesdf_tpu_torch.bench` runs it, the tracking and
-    pipeline lines on the first 30 frames (warm-up 15)."""
-    from bundlesdf_tpu_torch import bench
-    t0 = time.perf_counter()
-    (nof, runner), nof_counts = _counted(lambda: bench.bench_nof("cuda"))
-    nof_launches = nof_counts.launches
-    print(json.dumps(nof), flush=True)
-    _check_launches("nof_train_steps_per_sec", nof_counts,
-                    runner.global_step, runner.stream)
-    nof_steps = runner.global_step
-    del runner
-    torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    seq = bench.tracking_sequence()
-    t2 = time.perf_counter()
-    trk, _ = bench.bench_tracking("cuda", BENCH_FIXTURE,
-                                  n_frames=BENCH_FRAMES, warmup=BENCH_WARMUP,
-                                  seq=seq)
-    print(json.dumps(trk), flush=True)
-    t3 = time.perf_counter()
-    (pipe, t), pipe_counts = _counted(
-        lambda: bench.bench_pipeline(
-            "cuda", BENCH_FIXTURE, n_frames=BENCH_FRAMES,
-            warmup=BENCH_WARMUP,
-            device_ms_per_step=nof["device_ms_per_step"],
-            device_ms_per_frame=trk["device_ms_per_frame"], seq=seq))
-    print(json.dumps(pipe), flush=True)
-    pipe_launches = pipe_counts.launches
-    _check_launches("pipeline_fps", pipe_counts,
-                    pipe["nof_steps_trained"], t.nerf.stream)
-    del t
-    torch.cuda.empty_cache()
-    for rec, keys in ((nof, ("device_ms_per_step", "util")),
-                      (trk, ("device_ms_per_frame", "device_fps",
-                             "device_ms_by_program", "util")),
-                      (pipe, ("device_floor_fps_single_chip",
-                              "overlap_efficiency"))):
-        missing = [k for k in keys if k not in rec]
-        if missing or not np.isfinite(rec["value"]) or rec["value"] <= 0:
-            raise AssertionError(f"bench {rec['metric']}: value "
-                                 f"{rec['value']}, missing {missing}")
-    # the floor bounds the frame rate over the same frames and steps
-    if pipe["overlap_efficiency"] > 1:
-        raise AssertionError(f"bench pipeline_fps: {pipe['value']} frames/s "
-                             f"beats its device floor "
-                             f"{pipe['device_floor_fps_single_chip']} "
-                             f"({pipe['floor_window']})")
-    secs = time.perf_counter() - t0
-    print(f"bench phase: {secs:.1f} s (NOF line {t1 - t0:.1f} s, 70 frames "
-          f"rendered {t2 - t1:.1f} s, tracking line {t3 - t2:.1f} s, "
-          f"pipeline line {time.perf_counter() - t3:.1f} s); scatter_rows "
-          f"launches: NOF line "
-          f"{nof_launches} for {nof_steps} steps, pipeline line "
-          f"{pipe_launches} for {pipe['nof_steps_trained']} steps; hashgrid "
-          f"launches: NOF line {nof_counts.encoder_launches}, pipeline line "
-          f"{pipe_counts.encoder_launches} "
-          f"({pipe_counts.forward_only} forward-only calls); all "
-          f"on the runners' streams", flush=True)
-    return {"nof": nof, "tracking": trk, "pipeline": pipe,
-            "nof_launches": nof_launches, "nof_steps": nof_steps,
-            "pipeline_launches": pipe_launches,
-            "encoder_launches": {"nof": nof_counts.encoder_launches,
-                                 "pipeline": pipe_counts.encoder_launches},
-            "seconds": secs}
 
 
 def phase_protocol():
@@ -2177,39 +1979,6 @@ def phase_loftr_vs_cpu(seq, size=LOFTR_SIZE, device="cuda"):
                     or q["uv1_err"] >= 1.0 or q["conf_err"] >= 0.05):
                 raise AssertionError(f"loftr: bf16 vs f32 on the card {q}")
     return res
-
-
-def phase_loftr_bench():
-    """bench_loftr's four lines (amp off / on x batch 8 / 64)."""
-    from bundlesdf_tpu_torch import bench_loftr
-    t0 = time.perf_counter()
-    recs = bench_loftr.main([])
-    print(f"loftr bench: {time.perf_counter() - t0:.1f} s", flush=True)
-    return recs
-
-
-def phase_loftr_profile(batch=8):
-    """torch.profiler tables of one `predict` of @batch 400x400 pairs,
-    f32 and amp (seeded LoftrConfig()), sorted by device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from bundlesdf_tpu_torch.matcher.loftr import LoftrConfig, LoftrMatcher
-    rng = np.random.default_rng(0)
-    imgs = rng.uniform(0, 255, (batch + 1, LOFTR_SIZE, LOFTR_SIZE)).astype(
-        np.uint8)
-    for amp in (False, True):
-        m = LoftrMatcher(cfg=LoftrConfig(amp=amp), seed=0)
-        m.predict(list(imgs[:batch]), list(imgs[1:]))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            m.predict(list(imgs[:batch]), list(imgs[1:]))
-            torch.cuda.synchronize()
-        table = prof.key_averages().table(sort_by="cuda_time_total",
-                                          row_limit=25)
-        print(f"profile of one LoFTR predict, {batch} pairs 400x400, amp "
-              f"{amp}, {torch.cuda.get_device_name(0)}\n{table}", flush=True)
-        del m
-        torch.cuda.empty_cache()
 
 
 def phase_loftr_tracker(seq, n_frames=N_TRACK, traced=range(20, 25),
@@ -3160,16 +2929,12 @@ def main():
     phase_step_vs_cpu(runner)
     launches, enc_launches = phase_main(runner)
     sampler_in = record_sampler_inputs(runner)
-    if "--profile" in sys.argv[1:]:
-        phase_profile(runner)
     del runner
     torch.cuda.empty_cache()
     seq, feats, fx = tracker_inputs()
     phase_reader(seq)
     phase_tracker_components(seq, feats)
     tracked = phase_tracker_main(seq, feats, fx)
-    if "--profile" in sys.argv[1:]:
-        phase_tracker_profile(seq, feats)
     from bundlesdf_tpu_torch.config import default_track_config
     cfg_t = default_track_config()
     t, strict = phase_video(seq, feats, fx, "strict sync",
@@ -3186,26 +2951,18 @@ def main():
             strict_ref=strict, out_dir=art_dir)
         del t
         torch.cuda.empty_cache()
-        refine = phase_refine(seq, fx, art_dir, threaded,
-                              profile="--profile" in sys.argv[1:])
+        refine = phase_refine(seq, fx, art_dir, threaded)
     finally:
         shutil.rmtree(art_dir, ignore_errors=True)
     torch.cuda.empty_cache()
-    if "--profile" in sys.argv[1:]:
-        phase_video_profile(seq, feats)
-    bench = phase_bench()
     protocol = phase_protocol()
-    print(f"phases 11-12: {bench['seconds'] + protocol['seconds']:.1f} s",
-          flush=True)
     t13 = time.perf_counter()
     orb = phase_orb(seq, fx, tracked["ms_per_frame"])
     live = phase_live(protocol)
     print(f"phases 13-14: {time.perf_counter() - t13:.1f} s", flush=True)
     t15 = time.perf_counter()
-    loftr = {"vs_cpu": phase_loftr_vs_cpu(seq), "bench": phase_loftr_bench(),
+    loftr = {"vs_cpu": phase_loftr_vs_cpu(seq),
              "tracker": phase_loftr_tracker(seq)}
-    if "--profile" in sys.argv[1:]:
-        phase_loftr_profile()
     print(f"phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
     torch.cuda.empty_cache()
     t16 = time.perf_counter()
@@ -3252,11 +3009,6 @@ def main():
         "full_path_launches": strict["launches"],
         "full_path_nof_steps": strict["nof_steps_total"],
         "threaded_path_launches": threaded["launches"],
-        # the bench's lines (phase 11): launches = that line's NOF steps
-        "bench_nof_line_launches": bench["nof_launches"],
-        "bench_nof_line_steps": bench["nof_steps"],
-        "bench_pipeline_line_launches": bench["pipeline_launches"],
-        "bench_pipeline_line_steps": bench["pipeline"]["nof_steps_trained"],
         "extract_mesh_sdf_err": mesh_err,
         # phase 17: DP steps x replicas, each on its replica's stream
         "dp_launches": dp["dp_launches"], "dp_steps": dp["dp_steps"],
@@ -3283,9 +3035,6 @@ def main():
         "launches": {"main_path": enc_launches,
                      "full_path": strict["encoder_launches"],
                      "threaded_path": threaded["encoder_launches"],
-                     "bench_nof_line": bench["encoder_launches"]["nof"],
-                     "bench_pipeline_line":
-                         bench["encoder_launches"]["pipeline"],
                      "refine": refine["encoder_launches"],
                      "ho3d_online": ho3d["run"]["encoder_launches"],
                      "ho3d_refine": ho3d["refine"]["encoder_launches"],

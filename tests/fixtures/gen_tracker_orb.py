@@ -5,10 +5,6 @@ has no cv2), one file per `--sequence`:
   package's tracked trajectory for the first 30 frames of the 120-frame
   easy orbit at 480x640 (`tests/synthetic.py::cube_orbit_sequence`, depth
   noise 2 mm, seed 0);
-- `bench70`, `tracker_orb_bench70.npz`: the features of the 70 frames of
-  `bench.py`'s tracking and pipeline lines (`cube_orbit_sequence(n_frames=
-  70, obj_size=0.10, full_angle=1.2)`, no noise), detected on the masks the
-  tracker gets; features only;
 - `easy120`, `tracker_orb_easy120.npz`: the whole 120-frame easy orbit of
   `benchmark_synthetic.py --protocol easy` (obj_size 0.08, noise 2 mm, seed
   0), written as a dataset folder by the JAX driver's `write_sequence`; the
@@ -18,9 +14,9 @@ has no cv2), one file per `--sequence`:
   (`benchmark_synthetic.py --no_nerf --skip_refine`).
 
     JAX_PLATFORMS=cpu python tests/fixtures/gen_tracker_orb.py \
-        [--sequence orbit30|bench70|easy120] [--frames 30]
+        [--sequence orbit30|easy120] [--frames 30]
 
-(~2 min and ~1 GB for orbit30, ~1 min for bench70, ~10 min for easy120.)
+(~2 min and ~1 GB for orbit30, ~10 min for easy120.)
 
 Features come from cv2 as the JAX matcher detects them
 (`tests/orb_cv2.py::detect_cv2`: cv2 ORB on the mask crop zoomed to 400
@@ -32,8 +28,7 @@ port's trajectory against the stored one, and holds the port's own
 detector (`matcher/orb.py`) against the stored features.
 
 Stored arrays: `counts` (F,) features per frame; `uv` (sum,2) float32 and
-`des` (sum,32) uint8, frame after frame; except for bench70,
-`jax_cam_in_ob` (F,4,4), `jax_status` (F,) FrameStatus values,
+`des` (sum,32) uint8, frame after frame; `jax_cam_in_ob` (F,4,4), `jax_status` (F,) FrameStatus values,
 `jax_keyframes` frame ids; `model_pts` (20000,3) GT surface samples;
 `jax_add`/`jax_adds` (F,) per-frame ADD/ADD-S in meters after first-frame
 alignment.
@@ -46,7 +41,6 @@ import shutil
 import sys
 import tempfile
 import time
-from types import SimpleNamespace
 
 import numpy as np
 
@@ -55,8 +49,7 @@ ROOT = os.path.dirname(os.path.dirname(HERE))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.dirname(HERE))
 
-OUTS = {"orbit30": "tracker_orb_30f.npz", "bench70": "tracker_orb_bench70.npz",
-        "easy120": "tracker_orb_easy120.npz"}
+OUTS = {"orbit30": "tracker_orb_30f.npz", "easy120": "tracker_orb_easy120.npz"}
 
 
 def orbit_frames(n_frames=30):
@@ -68,22 +61,11 @@ def orbit_frames(n_frames=30):
                                noise=0.002, seed=0)
 
 
-def bench_frames(n_frames=70):
-    """The first @n_frames of the 70 frames of bench.py's tracking and
-    pipeline lines."""
-    from synthetic import cube_orbit_sequence
-    return cube_orbit_sequence(n_frames=n_frames, H=480, W=640, radius=0.45,
-                               obj_size=0.10, full_angle=1.2 * n_frames / 70)
-
-
 def tracker_inputs(sequence, n_frames, tmp):
     """The first @n_frames of @sequence and the (colors, masks) its
     fixture's features are detected on; easy120's frames go through a
     dataset folder under @tmp."""
-    if sequence == "bench70":
-        seq = bench_frames(n_frames)
-    else:
-        seq = orbit_frames(n_frames)
+    seq = orbit_frames(n_frames)
     if sequence != "easy120":
         return seq, seq["colors"], seq["masks"]
     from bundlesdf_tpu_torch.benchmark_synthetic import write_dataset
@@ -97,15 +79,6 @@ def detect_all(colors, masks):
     from orb_cv2 import detect_cv2
     return [detect_cv2(c, (m > 0).astype(np.uint8))
             for c, m in zip(colors, masks)]
-
-
-def jax_detect_all(colors, masks):
-    """The JAX matcher's detection (its per-frame cache) on the same."""
-    from bundlesdf_tpu.matcher import OrbMatcher
-    orb = OrbMatcher()
-    return [orb._frame_feats(SimpleNamespace(
-        id=i, color=c, fg_mask=(m > 0).astype(np.uint8)))[0]
-        for i, (c, m) in enumerate(zip(colors, masks))]
 
 
 def driver_inputs(video_dir, erode=3):
@@ -205,11 +178,7 @@ def main():
 
     tmp = tempfile.mkdtemp()
     try:
-        if args.sequence == "bench70":
-            seq = bench_frames()
-            colors, masks = seq["colors"], seq["masks"]
-            uv_jax = jax_detect_all(colors, masks)
-        elif args.sequence == "easy120":
+        if args.sequence == "easy120":
             video_dir = os.path.join(tmp, "video")
             seq = write_sequence(video_dir, 120, 480, 640, 0.002,
                                  protocol="easy")
@@ -230,16 +199,14 @@ def main():
         counts=np.array([len(u) for u, _ in feats], np.int32),
         uv=np.concatenate([u for u, _ in feats]).astype(np.float32),
         des=np.concatenate([d for _, d in feats]).astype(np.uint8))
-    msg = ""
-    if args.sequence != "bench70":
-        model_pts = gt_surface_points(20000).astype(np.float32)
-        add, adds = pose_errors(poses, seq["cam_in_obs"], model_pts)
-        arrays.update(jax_cam_in_ob=poses, jax_status=status,
-                      jax_keyframes=kfs, model_pts=model_pts, jax_add=add,
-                      jax_adds=adds)
-        msg = (f", FAIL {int((status == 0).sum())}, keyframes {len(kfs)}, "
-               f"mean ADD {add.mean() * 1e3:.3f} mm, ADD-S "
-               f"{adds.mean() * 1e3:.3f} mm")
+    model_pts = gt_surface_points(20000).astype(np.float32)
+    add, adds = pose_errors(poses, seq["cam_in_obs"], model_pts)
+    arrays.update(jax_cam_in_ob=poses, jax_status=status,
+                  jax_keyframes=kfs, model_pts=model_pts, jax_add=add,
+                  jax_adds=adds)
+    msg = (f", FAIL {int((status == 0).sum())}, keyframes {len(kfs)}, "
+           f"mean ADD {add.mean() * 1e3:.3f} mm, ADD-S "
+           f"{adds.mean() * 1e3:.3f} mm")
     np.savez_compressed(out, **arrays)
     print(f"wrote {out}: {len(feats)} frames, features/frame "
           f"{min(map(len, uv_jax))}-{max(map(len, uv_jax))}{msg}")

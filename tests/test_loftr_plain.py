@@ -16,11 +16,9 @@ LoFTR held against it, on the CPU:
   under its comparison, and the fp8, layer-skip and shifted-fine-window
   controls outside them;
 - the benchmark's copy of the reference is this file byte for byte, and
-  neither imports JAX or the port;
-- the benchmark's FLOP count equals `bench_loftr.pair_flops`.
+  neither imports JAX or the port.
 """
 import ast
-import dataclasses
 import json
 import os
 from types import SimpleNamespace
@@ -29,10 +27,9 @@ import numpy as np
 import pytest
 import torch
 
-from bundlesdf_tpu_torch import bench_loftr
 from bundlesdf_tpu_torch.matcher import loftr as tl
 from bundlesdf_tpu_torch.matcher.pairing import process_image_pairs
-from perfbench import loftr_flops, scene
+from perfbench import scene
 from perfbench.drivers import track_loftr
 from perfbench.tools import control_loftr
 from references import loftr_plain as lp
@@ -206,12 +203,3 @@ def test_reference_imports_neither_jax_nor_the_port(rel):
             mods.add(node.module.split(".")[0])
     assert mods <= {"__future__", "contextlib", "math", "dataclasses",
                     "torch"}, mods
-
-
-@pytest.mark.parametrize("over,size", [({}, 400), (TINY, 96)])
-def test_flops_equal_bench_loftr(over, size):
-    cfg = tl.LoftrConfig(**over)
-    got = loftr_flops.pair_flops(dataclasses.asdict(cfg), size, size)
-    assert got == bench_loftr.pair_flops(cfg, size, size)
-    if not over:
-        assert round(got["total"] / 1e9, 2) == 404.27

@@ -11,7 +11,9 @@ against the JAX driver (the top-level `benchmark_synthetic.py`):
   occluder sequence, writes a `metrics.json` equal within 1e-6 to the JAX
   package's `benchmark_video`, `collect_frame_statuses` and post-recovery
   ADD applied to the same run folder (the JAX driver's scoring, lines
-  216-253 of its file, at stride 1); the tracker is fed cv2's features.
+  216-253 of its file, at stride 1); the tracker is fed cv2's features;
+- `--orb_features` replays each frame's stored features, and a file with
+  fewer frames than the sequence is refused.
 """
 import glob
 import json
@@ -212,3 +214,43 @@ def test_driver_refuses_an_earlier_runs_outputs(tmp_path, stale):
     assert not (tmp_path / "video").exists()
     with pytest.raises(SystemExit):
         driver.main(["--skip_run", "--device", "cpu"])
+
+
+def _features_npz(path, counts):
+    """An .npz in `tests/fixtures/gen_tracker_orb.py`'s layout: @counts
+    features a frame, random uv and descriptors."""
+    rng = np.random.default_rng(0)
+    n = int(np.sum(counts))
+    uv = rng.uniform(0, 50, (n, 2)).astype(np.float32)
+    des = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    np.savez(path, counts=np.asarray(counts, np.int32), uv=uv, des=des)
+    return uv, des
+
+
+@pytest.mark.parametrize("counts", [[3, 2], [3]], ids=["two", "too_few"])
+def test_replayed_features(tmp_path, counts):
+    """`replay_matcher` gives each frame its own slice of the stored
+    features, and refuses a file that holds fewer frames than the
+    sequence."""
+    path = str(tmp_path / "feats.npz")
+    uv, des = _features_npz(path, counts)
+    if len(counts) < 2:
+        with pytest.raises(ValueError, match="holds 1 frames"):
+            driver.replay_matcher(path, ["0000", "0001"], "cpu")
+        return
+    m = driver.replay_matcher(path, ["0000", "0001"], "cpu")
+    got = m.detector(type("F", (), {"id_str": "0001"})())
+    np.testing.assert_array_equal(got[0], uv[3:])
+    np.testing.assert_array_equal(got[1], des[3:])
+
+
+def test_driver_refuses_too_few_replayed_frames(tmp_path):
+    """--orb_features with fewer frames than --n_frames stops the driver
+    before it tracks."""
+    path = str(tmp_path / "feats.npz")
+    _features_npz(path, [3])
+    with pytest.raises(ValueError, match="holds 1 frames, the sequence 2"):
+        driver.main(["--out", str(tmp_path / "out"), "--n_frames", "2",
+                     "--H", "60", "--W", "80", "--no_nerf", "--skip_refine",
+                     "--device", "cpu", "--orb_features", path])
+    assert not (tmp_path / "out" / "run").exists()

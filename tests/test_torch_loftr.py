@@ -15,7 +15,9 @@ the reference torch network and against the JAX package, on the CPU:
 - bf16 (`amp`) against JAX's bf16 forward and against its own f32 one,
   with the tolerances of `tests/test_loftr.py::test_amp_forward_close_to_f32`;
 - the `predict` contract: batched = single calls, shapes grouped, empty
-  in empty out, (N,5) float32, and equal to JAX `LoftrMatcher.predict`.
+  in empty out, (N,5) float32, and equal to JAX `LoftrMatcher.predict`;
+- the benchmark's FLOP count of a pair (`perfbench/loftr_flops.py`)
+  against forward hooks at tiny and at full widths.
 """
 import dataclasses
 import os
@@ -268,12 +270,16 @@ def test_checkpoint_file_loads_as_reference(golden, tmp_path):
     assert {p.dtype for p in amp.parameters()} == {torch.bfloat16}
 
 
-def test_pair_flops_against_module_hooks():
-    """bench_loftr.pair_flops against a count of every Conv2d and Linear
-    call of one forward (forward hooks), plus the einsums and products
-    that run outside modules, counted here from the shapes."""
-    from bundlesdf_tpu_torch.bench_loftr import pair_flops
-    cfg = tl.LoftrConfig(**{**TINY, "max_matches": 16})
+@pytest.mark.parametrize("over,size", [
+    ({**TINY, "max_matches": 16}, 64), (TINY, 96), ({}, 400)],
+    ids=["tiny64", "tiny96", "full400"])
+def test_pair_flops_against_module_hooks(over, size):
+    """The benchmark's `loftr_flops.pair_flops` against a count of every
+    Conv2d and Linear call of one forward (forward hooks), plus the einsums
+    and products that run outside modules, counted here from the shapes;
+    at the full widths on 400x400 pairs also its pin of 404.27 GFLOP."""
+    from perfbench.loftr_flops import pair_flops
+    cfg = tl.LoftrConfig(**over)
     net = tl.init_loftr(cfg)
     counted = [0]
 
@@ -287,10 +293,11 @@ def test_pair_flops_against_module_hooks():
     for mod in net.modules():
         if isinstance(mod, (torch.nn.Conv2d, torch.nn.Linear)):
             mod.register_forward_hook(hook)
-    H = W = 64
+    H = W = size
     with torch.no_grad():
         net(torch.rand(1, H, W), torch.rand(1, H, W))
-    L, K, ww = (H // 8) * (W // 8), 16, cfg.fine_window ** 2
+    L = (H // 8) * (W // 8)
+    K, ww = min(cfg.max_matches, L), cfg.fine_window ** 2
 
     def attn(Lq, S, d):
         return 2 * S * d * (d // cfg.nhead) + 2 * Lq * d \
@@ -300,15 +307,7 @@ def test_pair_flops_against_module_hooks():
                + 2 * L * L * cfg.d_coarse
                + 2 * cfg.n_fine_layers * 2 * K * attn(ww, ww, cfg.d_fine)
                + 2 * K * ww * cfg.d_fine + 2 * K * ww * 2)
-    assert pair_flops(cfg, H, W)["total"] == counted[0] + outside
-
-
-def test_bench_line_on_the_cpu():
-    from bundlesdf_tpu_torch.bench_loftr import bench_line
-    m = tl.LoftrMatcher(cfg=tl.LoftrConfig(**TINY), device="cpu")
-    imgs = (np.random.default_rng(0).uniform(0, 255, (2, 64, 64))
-            .astype(np.uint8))
-    rec = bench_line(m, imgs, batch=2, repeat=1)
-    assert rec["metric"] == "loftr_pairs_per_sec" and rec["value"] > 0
-    assert rec["device"] == "cpu" and rec["batch"] == 2
-    assert "device_ms_per_pair" not in rec and "peak_mem_gib" not in rec
+    got = pair_flops(dataclasses.asdict(cfg), H, W)["total"]
+    assert got == counted[0] + outside
+    if not over:
+        assert round(got / 1e9, 2) == 404.27

@@ -117,14 +117,13 @@ def test_orb_detection_matches_jax():
 def test_orb_fixture_is_current(tmp_path):
     """Each committed ORB fixture equals a fresh cv2 detection of its first two
     frames (regenerate with tests/fixtures/gen_tracker_orb.py --sequence
-    orbit30|bench70|easy120): the 30-frame orbit of the GPU smoke run, the
-    70 frames of the bench's tracking lines, and the 120-frame easy run of
-    benchmark_synthetic, whose frames go through a dataset folder and the
-    driver's mask erosion first."""
+    orbit30|easy120): the 30-frame orbit of the GPU smoke run and the
+    120-frame easy run of benchmark_synthetic, whose frames go through a
+    dataset folder and the driver's mask erosion first."""
     pytest.importorskip("cv2", reason="re-detection needs cv2")
     from fixtures.gen_tracker_orb import OUTS, detect_all, tracker_inputs
 
-    frames = {"orbit30": 30, "bench70": 70, "easy120": 120}
+    frames = {"orbit30": 30, "easy120": 120}
     for name, n_frames in frames.items():
         fx = np.load(os.path.join(os.path.dirname(FIXTURE), OUTS[name]))
         counts = fx["counts"]
@@ -139,7 +138,6 @@ def test_orb_fixture_is_current(tmp_path):
             np.testing.assert_array_equal(des, fx["des"][off:off + n],
                                           err_msg=name)
             off += n
-        if name != "bench70":
-            assert fx["jax_cam_in_ob"].shape == (n_frames, 4, 4)
-            # no FAIL frame in the JAX run
-            assert (fx["jax_status"] != 0).all(), name
+        assert fx["jax_cam_in_ob"].shape == (n_frames, 4, 4)
+        # no FAIL frame in the JAX run
+        assert (fx["jax_status"] != 0).all(), name

@@ -26,8 +26,8 @@ names = [m.name for m in pkgutil.walk_packages(bundlesdf_tpu_torch.__path__,
                                                "bundlesdf_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-# the measurement harness: profiling, the bench and the protocol driver
-assert {"bundlesdf_tpu_torch.utils.profiling", "bundlesdf_tpu_torch.bench",
+# the measurement harness: profiling and the protocol driver
+assert {"bundlesdf_tpu_torch.utils.profiling",
         "bundlesdf_tpu_torch.benchmark_synthetic"} <= set(names)
 import chip_smoke
 # ORB detection with cv2 blocked: a textured square on a flat background
@@ -49,8 +49,7 @@ assert rows.dtype == np.float32 and rows.shape[1] == 5 and len(rows) > 100
 assert np.median(rows[:, 2] - rows[:, 0]) == 5
 # LoFTR with cv2 blocked: a pair canonicalized and matched by a tiny net
 assert {"bundlesdf_tpu_torch.matcher.loftr",
-        "bundlesdf_tpu_torch.matcher.pairing",
-        "bundlesdf_tpu_torch.bench_loftr"} <= set(names)
+        "bundlesdf_tpu_torch.matcher.pairing"} <= set(names)
 from bundlesdf_tpu_torch.matcher.loftr import LoftrConfig, LoftrMatcher
 from bundlesdf_tpu_torch.matcher.pairing import mask_roi, process_image_pair
 pose = np.eye(4)
