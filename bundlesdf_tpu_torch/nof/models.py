@@ -27,6 +27,7 @@ from torch import nn
 
 from bundlesdf_tpu_torch.ops.hashgrid import (HashGridSpec, hashgrid_encode,
                                               init_hashgrid_params)
+from bundlesdf_tpu_torch.utils.profiling import count
 from bundlesdf_tpu_torch.utils.se3 import se3_exp
 
 # ---------------------------------------------------------------------------
@@ -194,9 +195,11 @@ class NofField(nn.Module):
         return viewdirs
 
     def forward(self, pts, viewdirs=None, frame_ids=None,
-                compute_dtype=torch.float32):
+                compute_dtype=torch.float32, samples_per_ray=None):
         """Full field query. @pts: (N,3) in [-1,1] (normalized object
-        space); @viewdirs: (N,3) unit dirs; @frame_ids: (N,) int.
+        space); @viewdirs: (N,3) unit dirs; @frame_ids: (N,) int, or with
+        @samples_per_ray = s, (N/s,) int, one per ray of ray-major @pts
+        (ray r's samples are rows r*s .. r*s+s-1).
         Returns (N,4) float32: rgb logits (3) + sdf (1) (ref NeRFSmall.forward
         + run_network embedding assembly nerf_runner.py:1227-1304)."""
         feats = self._embed_pos(pts).to(compute_dtype)
@@ -205,12 +208,27 @@ class NofField(nn.Module):
 
         views = []
         if self.spec.frame_features > 0 and frame_ids is not None:
-            views.append(self.feature_array[frame_ids].to(compute_dtype))
+            views.append(self._frame_features(frame_ids, samples_per_ray,
+                                              compute_dtype))
         if self.spec.use_viewdirs and viewdirs is not None:
             views.append(self._embed_views(viewdirs).to(compute_dtype))
         color_in = torch.cat(views + [geo], dim=-1)
         rgb = _mlp(self.color_net, color_in, compute_dtype)
         return torch.cat([rgb, sdf], dim=-1).float()
+
+    def _frame_features(self, frame_ids, samples_per_ray, dtype):
+        """Each point's frame latent, in @dtype. Per-ray ids are gathered
+        once a ray and broadcast along its samples in float32 before the
+        cast, so the backward sums each ray's samples densely in float32
+        and its index backward takes one row a ray, not one a sample
+        (sorted, no atomics). Counts the rows gathered as
+        `nof.feature_rows`."""
+        count("nof.feature_rows", frame_ids.shape[0])
+        f = self.feature_array[frame_ids]
+        if samples_per_ray is not None:
+            n, c = f.shape
+            f = f[:, None, :].expand(n, samples_per_ray, c).reshape(-1, c)
+        return f.to(dtype)
 
     def sdf(self, pts, compute_dtype=torch.float32):
         """SDF-only query (mesh extraction / eikonal; ref

@@ -125,7 +125,7 @@ def render_rays(field, rcfg: RenderConfig, rays: dict, c2w,
         valid = torch.all(torch.abs(p_w) <= 1.0, dim=-1)
         r = field(p_w.reshape(-1, 3),
                   viewdirs=torch.repeat_interleave(viewdirs_w, s, dim=0),
-                  frame_ids=torch.repeat_interleave(frame_ids, s, dim=0),
+                  frame_ids=frame_ids, samples_per_ray=s,
                   compute_dtype=compute_dtype)
         return r.reshape(N, s, 4), valid
 

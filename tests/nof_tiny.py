@@ -1,6 +1,6 @@
 """A `NofRunner` of the port on the CPU at a size whose steps take a few
-hundredths of a second: three frames of the synthetic orbit, two hash-grid
-levels, 64 rays of 8 + 8 samples."""
+hundredths of a second: three frames of the synthetic orbit (or
+@n_frames), two hash-grid levels, 64 rays of 8 + 8 samples."""
 import numpy as np
 
 from synthetic import cube_orbit_sequence
@@ -10,8 +10,8 @@ from bundlesdf_tpu_torch.nof.runner import NofRunner, preprocess_frame_data
 from bundlesdf_tpu_torch.utils.common import GLCAM_IN_CVCAM
 
 
-def tiny_runner(seed=0, device="cpu", **cfg_over):
-    seq = cube_orbit_sequence(n_frames=3, H=40, W=48, radius=0.45,
+def tiny_runner(seed=0, device="cpu", n_frames=3, **cfg_over):
+    seq = cube_orbit_sequence(n_frames=n_frames, H=40, W=48, radius=0.45,
                               obj_size=0.08)
     sc = 0.9 / 0.6
     cfg = default_nerf_config()

@@ -561,7 +561,8 @@ def _copy_state(dst, src):
     dst.generator.set_state(src.generator.get_state())
 
 
-def test_graph_replays_equal_eager_steps(cuda_device):
+@pytest.mark.parametrize("frame_features", [0, 2])
+def test_graph_replays_equal_eager_steps(cuda_device, frame_features):
     """Ten steps of a tiny runner through its `StepGraph` (one eager step,
     then replays of the captured step) against the same runner's eager
     steps (its graph taken away: every step `train_step`), each eager step
@@ -570,9 +571,16 @@ def test_graph_replays_equal_eager_steps(cuda_device):
     bit-equal, but the hash table's: its gradient is summed by the
     `scatter_rows` kernel's atomics, in another order on every run (two
     eager runs differ there too), so it is held within float32's
-    summation-order error and the table's update is not compared."""
+    summation-order error and the table's update is not compared. With
+    frame features, `feature_array` is held bit-equal too: its backward
+    (a dense sum over each ray's samples, an index backward over the
+    rays) has no atomics."""
     from nof_tiny import tiny_runner
-    graph, eager = (tiny_runner(device=cuda_device) for _ in range(2))
+    graph, eager = (tiny_runner(device=cuda_device,
+                                frame_features=frame_features)
+                    for _ in range(2))
+    assert ("feature_array" in dict(graph.field.named_parameters())) \
+        == (frame_features > 0)
     eager._step_graph = None
     pg = dict(graph.field.named_parameters())
     before = profiling.snapshot()
@@ -639,6 +647,55 @@ def test_replayed_steps_count_their_kernel_launches(cuda_device):
     r.train(n_steps=6)
     assert _launches() - n0 == 7
     assert _launches("hashgrid.launches") - h0 == 14
+
+
+# custom.refine's frame-feature gather: 2,048 rays x (64 + 256) samples,
+# 40 keyframes, 2 features, bf16 compute
+_REFINE_RAYS, _REFINE_SAMPLES, _REFINE_FRAMES = 2048, 320, 40
+
+
+def test_frame_feature_gradient_at_the_refine_shape(cuda_device):
+    """At `custom.refine`'s shape the per-ray gather's `feature_array`
+    gradient (one index backward row a ray after a float32 sum over its
+    samples) agrees with the per-sample gather's (~16,000 samples piled
+    on each frame row) within float32 summation-order error: 1e-6 of the
+    row's sum of |cotangent|."""
+    from bundlesdf_tpu_torch.nof.models import NofField, NofSpec
+    spec = NofSpec(grid=HashGridSpec(n_levels=2, base_res=4, finest_res=8,
+                                     log2_hashmap_size=8),
+                   frame_features=2, n_frames=_REFINE_FRAMES)
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    field = NofField(spec, generator=torch.Generator().manual_seed(0)).to(
+        cuda_device)
+    ids = torch.randint(0, _REFINE_FRAMES, (_REFINE_RAYS,), generator=g,
+                        device=cuda_device)
+    rows = torch.repeat_interleave(ids, _REFINE_SAMPLES)
+    cot = torch.randn((rows.shape[0], 2), generator=g,
+                      device=cuda_device).to(torch.bfloat16)
+    got = []
+    for frame_ids, s in ((ids, _REFINE_SAMPLES), (rows, None)):
+        field.zero_grad(set_to_none=True)
+        f = field._frame_features(frame_ids, s, torch.bfloat16)
+        assert f.shape == (rows.shape[0], 2) and f.dtype == torch.bfloat16
+        f.backward(cot)
+        got.append(field.feature_array.grad.double())
+    abs_sums = torch.zeros_like(got[0]).index_add_(0, rows,
+                                                   cot.abs().double())
+    assert torch.all((got[0] - got[1]).abs() <= 1e-6 * abs_sums)
+
+
+def test_replayed_refine_step_counts_its_feature_rows(cuda_device):
+    """A runner at `custom.refine`'s rays, samples, keyframes and frame
+    features: each replayed step adds 2,048 to `nof.feature_rows`."""
+    from nof_tiny import tiny_runner
+    r = tiny_runner(device=cuda_device, n_frames=_REFINE_FRAMES,
+                    frame_features=2, N_rand=_REFINE_RAYS, N_samples=64,
+                    N_samples_around_depth=256)
+    r.train(n_steps=2)                     # one eager step, then a capture
+    before = profiling.snapshot()
+    r.train(n_steps=3)
+    assert _counts(before, "nof.graph.replay", "nof.feature_rows") == [
+        3, 3 * _REFINE_RAYS]
 
 
 def test_host_pull_wait_is_its_span(cuda_device):
