@@ -22,6 +22,7 @@ import torch
 
 from bundlesdf_tpu_torch.nof.losses import LossConfig, nof_loss
 from bundlesdf_tpu_torch.nof.render import RenderConfig, render_rays
+from bundlesdf_tpu_torch.ops.adam import Adam
 from bundlesdf_tpu_torch.utils.profiling import count, snapshot, span
 
 
@@ -42,10 +43,12 @@ def make_optimizer(field, tcfg: TrainConfig):
     with two parameter groups: `pose_array` at lrate_pose, everything else
     at lrate. `adam_step` rescales each group's lr every step. Adam's
     update -lr * m_hat / (sqrt(v_hat) + eps) is the JAX package's
-    `optax.scale_by_adam` followed by its per-leaf `-lr * f * u`."""
+    `optax.scale_by_adam` followed by its per-leaf `-lr * f * u`. On CUDA
+    each group's update is one kernel launch (`ops/adam.py::Adam`, bit-equal
+    to torch's foreach Adam); on the CPU it is `torch.optim.Adam`'s."""
     pose = [field.pose_array]
     rest = [p for n, p in field.named_parameters() if n != "pose_array"]
-    return torch.optim.Adam(
+    return Adam(
         [{"params": rest, "lr": tcfg.lrate, "base_lr": tcfg.lrate},
          {"params": pose, "lr": tcfg.lrate_pose, "base_lr": tcfg.lrate_pose}],
         betas=(0.9, 0.999), eps=1e-15)
@@ -93,7 +96,8 @@ def step_gradients(field, optimizer, batch: dict, c2w, occ_grid,
 
 def adam_step(optimizer, step: int, tcfg: TrainConfig, n_iters: int):
     """Adam's step at global @step, each group's lr at its base times the
-    staircase factor (span `nof.adam`)."""
+    staircase factor (span `nof.adam`; on CUDA two `adam.launches`, one a
+    group)."""
     with span("nof.adam"):
         f = lr_factor_at(step, tcfg, n_iters)
         for group in optimizer.param_groups:
@@ -180,9 +184,11 @@ class StepGraph:
       `StepGraph` for its life: a keyframe batch (`add_new_frames`)
       rebinds the field, ray store, grid and poses and so recaptures once;
       a refine captures once.
-    - Adam stays the plain one, outside the graph: it reads the gradients
-      the replay wrote into the tensors the capture left in `.grad`, and
-      computes its bias corrections on the host in double precision. A
+    - Adam stays eager, outside the graph (`ops/adam.py::Adam`, one
+      kernel launch a group, bit-equal to torch's foreach Adam): it reads
+      the gradients the replay wrote into the tensors the capture left in
+      `.grad`, and computes its bias corrections on the host in double
+      precision. A
       capturable Adam computes them in float32 from float32 betas (1 -
       0.999f is 1.3e-5 off 1 - 0.999), and its steps drift from the plain
       Adam's further than the benchmark's comparison allows.

@@ -5,8 +5,8 @@
 
 Phases, one printed line each (or a few), any failure exits non-zero:
   1. the card: torch/CUDA versions, `nvidia-smi` name and power limit;
-  2. build the `scatter_rows` and hash-grid encoder CUDA kernels from
-     `bundlesdf_tpu_torch/csrc`;
+  2. build the `scatter_rows`, hash-grid encoder and Adam CUDA kernels
+     from `bundlesdf_tpu_torch/csrc`;
   3. kernel vs plain PyTorch scatter at the training step's shapes
      (12.58M rows into the 2,462,164-row table): uniform random rows, and
      the rows and values of one real training step, recorded on their way
@@ -20,7 +20,10 @@ Phases, one printed line each (or a few), any failure exits non-zero:
      each cell's points a step and grid against the plain path and the
      backward's torch twin, its table and point gradients (with the
      scatter) against PyTorch's autograd with float32 and bf16 gathers,
-     timed in turns beside their byte bounds and the plain path; one
+     timed in turns beside their byte bounds and the plain path; the
+     Adam kernel (`csrc/adam.cu`) against torch's foreach Adam at each
+     cell's table with the MLPs and per-frame arrays, timed in turns
+     beside its byte bound, then bit-equal to it; one
      small training step on the card vs the same step on the CPU (the
      CPU path is the one held against the JAX package by
      tests/test_torch_*.py);
@@ -28,7 +31,9 @@ Phases, one printed line each (or a few), any failure exits non-zero:
      the default) at the online workload (the NOF configuration of the
      JAX package's `bench.py`) trains
      10 + 50 steps; steps/s, memory, losses, and the kernels' launches
-     (one scatter a step, with group L*8; two encoder launches a step);
+     (one scatter a step, with group L*8; two encoder launches and two
+     Adam launches, one a parameter group, a step; so in every phase
+     below that counts launches);
      (before phase 6, the host reads a frame of the orbit written as a
      dataset folder through `YcbineoatReader`, Up and Paeth rows, timed);
   6. tracker components on the card vs the CPU at the steady 480x640
@@ -133,6 +138,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import json
 import os
 import shutil
@@ -236,8 +242,9 @@ def phase_card():
 
 
 def phase_build():
-    from bundlesdf_tpu_torch.ops import hashgrid, scatter
-    for build in (scatter.build_library, hashgrid.build_library):
+    from bundlesdf_tpu_torch.ops import adam, hashgrid, scatter
+    for build in (scatter.build_library, hashgrid.build_library,
+                  adam.build_library):
         t0 = time.perf_counter()
         path, log = build()
         ptxas = [ln.strip() for ln in log.splitlines()
@@ -563,6 +570,66 @@ def _encoder_grads(cell, spec, x, cot, gen):
     return errs
 
 
+# Adam's tensors at each cell: the table's rows (x 2 features), then the
+# refine configs' MLPs, `feature_array` and `pose_array` (40 frames)
+ADAM_CELLS = (("custom.online", 2_462_164), ("custom.refine", 39_601_891),
+              ("ho3d.refine", 84_133_278))
+ADAM_SHAPES = [(64, 32), (64,), (16, 64), (16,), (64, 26), (64,), (64, 64),
+               (64,), (3, 64), (3,), (40, 2), (40, 6)]
+
+
+def _adam_times():
+    """The Adam kernel (`ops/adam.py::Adam`) against torch's foreach Adam
+    over each cell's tensors in two groups (the last alone, as
+    `pose_array`): both step on the same sparse gradients, timed in turns
+    (`_in_turns`, so both take the same steps), the kernel beside its byte
+    bound (28 bytes an element: p, g, m, v read, p, m, v written); then
+    their parameters and moments must be bit-equal."""
+    from bundlesdf_tpu_torch.ops.adam import Adam
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    results = {}
+    for cell, rows in ADAM_CELLS:
+        shapes = [(rows, 2)] + ADAM_SHAPES
+        init = [torch.randn(s, generator=gen, device="cuda") * 0.1
+                for s in shapes]
+        grads = [torch.randn(s, generator=gen, device="cuda")
+                 * (torch.rand(s, generator=gen, device="cuda") < 0.4)
+                 for s in shapes]
+        opts = {}
+        for name, make in (("kernel", Adam), ("foreach", functools.partial(
+                torch.optim.Adam, foreach=True))):
+            ps = [torch.nn.Parameter(t.clone()) for t in init]
+            for p, g in zip(ps, grads):
+                p.grad = g
+            opts[name] = ps, make([{"params": ps[:-1], "lr": 0.01},
+                                   {"params": ps[-1:], "lr": 0.001}],
+                                  betas=(0.9, 0.999), eps=1e-15)
+        t = _in_turns({f"{k}_ms": o.step for k, (_, o) in opts.items()},
+                      reps=3)
+        torch.cuda.synchronize()
+        (pk, ok), (pf, of) = opts["kernel"], opts["foreach"]
+        same = all(torch.equal(a, b) for a, b in zip(pk, pf)) and all(
+            torch.equal(ok.state[a][k], of.state[b][k])
+            for a, b in zip(pk, pf) for k in ("exp_avg", "exp_avg_sq"))
+        steps = int(ok.state[pk[0]]["step"])
+        n = sum(p.numel() for p in pk)
+        bound = 1e3 * 28 * n / HBM_BYTES_S
+        results[cell] = {"elements": n, "steps": steps, **t,
+                         "bound_ms": bound, "bit_equal": same}
+        print(f"adam {cell}: {n} elements in {len(shapes)} tensors, two "
+              f"groups; kernel {t['kernel_ms']:.4f} ms a step, bound "
+              f"{bound:.4f} ms ({bound / t['kernel_ms']:.1%}); torch's "
+              f"foreach Adam {t['foreach_ms']:.4f} ms "
+              f"({t['foreach_ms'] / t['kernel_ms']:.2f}x); parameters and "
+              f"moments bit-equal after {steps} steps: {same}", flush=True)
+        del init, grads, opts, pk, ok, pf, of
+        torch.cuda.empty_cache()
+        if not same:
+            raise AssertionError(f"adam {cell}: the kernel's parameters or "
+                                 f"moments differ from the foreach Adam's")
+    return results
+
+
 def phase_encoder():
     """The hash-grid encoder's two kernels at each cell's points a step
     and grid, on ray-ordered points: the forward within float32 summation
@@ -571,7 +638,8 @@ def phase_encoder():
     PyTorch's autograd (`_encoder_grads`); then, in turns, the forward
     kernel, the backward kernel, forward + backward through autograd
     (with the scatter) and the plain path's forward + backward, each
-    kernel beside its byte bound."""
+    kernel beside its byte bound. Then the Adam kernel at each cell's
+    tensors (`_adam_times`). Returns (encoder results, Adam results)."""
     from bundlesdf_tpu_torch.ops import hashgrid as hg
     gen = torch.Generator(device="cuda").manual_seed(11)
     results = {}
@@ -631,7 +699,7 @@ def phase_encoder():
               flush=True)
         del table, x, cot, tp, xp
         torch.cuda.empty_cache()
-    return results
+    return results, _adam_times()
 
 
 def phase_step_vs_cpu(runner):
@@ -730,7 +798,8 @@ def phase_main(runner):
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        launches0, enc0 = scatter_launches(), encoder_launches()
+        launches0, enc0, adam0 = (scatter_launches(), encoder_launches(),
+                                  adam_launches())
         m0 = runner.train(n_steps=WARMUP_STEPS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -739,6 +808,7 @@ def phase_main(runner):
         dt = time.perf_counter() - t0
         launches = scatter_launches() - launches0
         enc = encoder_launches() - enc0
+        adam = adam_launches() - adam0
     finally:
         hashgrid.scatter_rows = orig
     peak = torch.cuda.max_memory_allocated()
@@ -750,7 +820,7 @@ def phase_main(runner):
           f"{peak / 2 ** 30:.3f} GiB, loss {loss[0]:.5f} -> {loss[-1]:.5f}, "
           f"sdf_loss {sdf[0]:.5f} -> {sdf[-1]:.5f}, scatter_rows launches "
           f"{launches} (calls by group {dict(groups)}), hashgrid launches "
-          f"{enc}", flush=True)
+          f"{enc}, adam launches {adam}", flush=True)
     if not np.isfinite(loss).all():
         raise AssertionError("main path: non-finite loss")
     if not sdf[-5:].mean() < sdf[:5].mean():
@@ -763,9 +833,10 @@ def phase_main(runner):
                              f"calls by group {dict(groups)}, for {n_steps} "
                              f"steps; expected one launch a step, every call "
                              f"with group {group}")
-    if enc != 2 * n_steps:
-        raise AssertionError(f"main path: {enc} hashgrid launches for "
-                             f"{n_steps} steps; expected 2 a step")
+    if enc != 2 * n_steps or adam != 2 * n_steps:
+        raise AssertionError(f"main path: {enc} hashgrid and {adam} adam "
+                             f"launches for {n_steps} steps; expected 2 a "
+                             f"step each")
     return launches, enc
 
 
@@ -1143,9 +1214,16 @@ def encoder_launches() -> int:
     return profiling.snapshot().get("hashgrid.launches", (0, 0.0))[0]
 
 
+def adam_launches() -> int:
+    """The Adam kernel's launches so far (`adam.launches`)."""
+    from bundlesdf_tpu_torch.utils import profiling
+    return profiling.snapshot().get("adam.launches", (0, 0.0))[0]
+
+
 class KernelCounts:
-    """While open: the scatter kernel's and the encoder kernels' launches
-    (`scatter_launches`, `encoder_launches`), the CUDA streams their
+    """While open: the scatter kernel's, the encoder kernels' and the Adam
+    kernel's launches (`scatter_launches`, `encoder_launches`,
+    `adam_launches`), the CUDA streams the first two's
     Python calls were issued on (eager steps and captures: a replayed step
     calls no Python), and the field's encoder calls made without autograd
     (mesh and texture queries, one forward launch each)."""
@@ -1180,13 +1258,21 @@ class KernelCounts:
                                                    launch_on_stream)
         models.hashgrid_encode = encode_counted
         self._undo = undo
-        self._launches0 = scatter_launches(), encoder_launches()
+        self._launches0 = (scatter_launches(), encoder_launches(),
+                           adam_launches())
         return self
 
     def __exit__(self, *exc):
         self._undo()
         self.launches = scatter_launches() - self._launches0[0]
         self.encoder_launches = encoder_launches() - self._launches0[1]
+        self.adam_launches = adam_launches() - self._launches0[2]
+
+    def check_adam(self, what, steps):
+        """Two Adam launches a training step (one a parameter group)."""
+        if self.adam_launches != 2 * steps:
+            raise AssertionError(f"{what}: {self.adam_launches} adam launches "
+                                 f"for {steps} steps; expected 2 a step")
 
     def check_encoder(self, what, steps, stream=None):
         """Two encoder launches a training step (forward and backward,
@@ -1302,7 +1388,8 @@ def phase_video(seq, feats, fx, name, cfg_nerf, n_frames=N_TRACK,
           f"({res['nof_steps_per_s']:.3f} steps/s inside batches); "
           f"scatter_rows launches {launches}; hashgrid launches "
           f"{counts.encoder_launches} ({counts.forward_only} "
-          f"forward-only calls); kernel streams "
+          f"forward-only calls); adam launches {counts.adam_launches}; "
+          f"kernel streams "
           f"{ {('nof' if k == nerf_stream else k): v for k, v in streams.items()} }; "
           f"peak {res['peak_gib']:.3f} GiB", flush=True)
     if out_dir is not None:
@@ -1346,6 +1433,7 @@ def phase_video(seq, feats, fx, name, cfg_nerf, n_frames=N_TRACK,
                              f"streams {dict(streams)}, the runner's is "
                              f"{nerf_stream}")
     counts.check_encoder(f"run_video {name}", steps, nerf_stream)
+    counts.check_adam(f"run_video {name}", steps)
     if not all(kf.nerfed for kf in t.bundler.keyframes):
         raise AssertionError(f"run_video {name}: a keyframe was never synced "
                              f"from the NOF")
@@ -1453,7 +1541,8 @@ def phase_refine(seq, fx, out_dir, online):
           f"{st['texture_s']:.3f} s, wall {wall:.3f} s; peak "
           f"{peak / 2 ** 30:.3f} GiB; scatter_rows launches {launches}; "
           f"hashgrid launches {enc} ({counts.forward_only} "
-          f"forward-only calls); kernel streams "
+          f"forward-only calls); adam launches {counts.adam_launches}; "
+          f"kernel streams "
           f"{ {('nof' if k == nerf_stream else k): v for k, v in streams.items()} }; "
           f"marching {marching_tetrahedra.last_path}, rasterizer "
           f"{rasterize.last_path}", flush=True)
@@ -1467,6 +1556,7 @@ def phase_refine(seq, fx, out_dir, online):
                              f"{st['steps']} steps, on streams "
                              f"{dict(streams)} (the runner's: {nerf_stream})")
     counts.check_encoder("refine", st["steps"], nerf_stream)
+    counts.check_adam("refine", st["steps"])
     if (marching_tetrahedra.last_path, rasterize.last_path) != \
             ("native", "native"):
         raise AssertionError(f"refine: marching {marching_tetrahedra.last_path}"
@@ -2218,8 +2308,8 @@ def phase_ho3d_run(video, out_dir, seq, fx, ref_add_mm, n):
           f"{res['ms_per_frame']:.3f} ms/frame; NOF batches "
           f"{st['n_batches']}, steps {steps}; scatter_rows launches "
           f"{launches}; hashgrid launches {counts.encoder_launches} "
-          f"({counts.forward_only} forward-only calls); kernel "
-          f"streams "
+          f"({counts.forward_only} forward-only calls); adam launches "
+          f"{counts.adam_launches}; kernel streams "
           f"{ {('nof' if k == nerf_stream else k): v for k, v in streams.items()} }; "
           f"peak {res['peak_gib']:.3f} GiB; FAIL {res['fail']}; mean ADD "
           f"{res['add_mm']:.4f} mm ADD-S {res['adds_mm']:.4f} mm (phase 9 "
@@ -2245,6 +2335,7 @@ def phase_ho3d_run(video, out_dir, seq, fx, ref_add_mm, n):
                              f"for {steps} NOF steps on streams "
                              f"{dict(streams)} (the runner's: {nerf_stream})")
     counts.check_encoder("run_ho3d", steps, nerf_stream)
+    counts.check_adam("run_ho3d", steps)
     return res
 
 
@@ -2316,7 +2407,8 @@ def phase_ho3d_refine(video, out_dir, seq, fx, n):
           f"{st['steps_per_s']:.3f} steps/s, wall {wall:.3f} s, peak "
           f"{res['peak_gib']:.3f} GiB; scatter_rows launches {launches}; "
           f"hashgrid launches {enc} ({counts.forward_only} "
-          f"forward-only calls); kernel streams "
+          f"forward-only calls); adam launches {counts.adam_launches}; "
+          f"kernel streams "
           f"{ {('nof' if k == nerf_stream else k): v for k, v in streams.items()} }; "
           f"marching {marching_tetrahedra.last_path}; mesh "
           f"{res['mesh_faces']} faces, Chamfer {res['chamfer_cm']:.4f} cm; "
@@ -2328,6 +2420,7 @@ def phase_ho3d_refine(video, out_dir, seq, fx, n):
                              f"for {st['steps']} steps, on streams "
                              f"{dict(streams)} (the runner's: {nerf_stream})")
     counts.check_encoder("HO3D refine", st["steps"], nerf_stream)
+    counts.check_adam("HO3D refine", st["steps"])
     if marching_tetrahedra.last_path != "native" or \
             cfg["mesh_resolution"] != 0.003:
         raise AssertionError(f"HO3D refine: marching "
@@ -2642,6 +2735,7 @@ def phase_placement(seq, feats, fx, nerf_device):
                              f"{dict(streams)}")
     counts.check_encoder(f"placement nerf_device={nerf_device}", steps,
                          nerf_stream.cuda_stream)
+    counts.check_adam(f"placement nerf_device={nerf_device}", steps)
     if not nerfed or not finite:
         raise AssertionError(f"placement: {nerfed} keyframes nerfed, poses "
                              f"finite {finite}")
@@ -2713,8 +2807,8 @@ def phase_dp(seq, feats, fx):
           f"{n_dp} steps, by stream "
           f"{ {('replica %d' % rep_streams.index(k) if k in rep_streams else k): v for k, v in streams.items()} }"
           f"; hashgrid launches {enc}, by stream "
-          f"{ {('replica %d' % rep_streams.index(k) if k in rep_streams else k): v for k, v in enc_streams.items()} }",
-          flush=True)
+          f"{ {('replica %d' % rep_streams.index(k) if k in rep_streams else k): v for k, v in enc_streams.items()} }"
+          f"; adam launches {counts.adam_launches}", flush=True)
     if not (np.isfinite(loss_dp).all() and np.isfinite(loss_sd).all()):
         raise AssertionError("dp: non-finite loss")
     if not (f_dp < DP_LOSS_RATIO * f_sd + 1e-3
@@ -2734,6 +2828,7 @@ def phase_dp(seq, feats, fx):
     # eager steps: every encoder launch is made from Python, two a step on
     # each replica's stream
     counts.check_encoder("dp", n_dp * len(shared))
+    counts.check_adam("dp", n_dp * len(shared))
     if dict(enc_streams) != {k: 2 * n_dp for k in rep_streams}:
         raise AssertionError(f"dp: hashgrid launches by stream "
                              f"{dict(enc_streams)} for {n_dp} steps on each "
@@ -2923,7 +3018,7 @@ def main():
     runner = make_runner()
     scatter = phase_scatter(runner.spec.grid.total_rows)
     real = phase_scatter_real(runner)
-    encoder = phase_encoder()
+    encoder, adam = phase_encoder()
     grad_err = max(max(c["table_grad_max_abs_err"], c["x_grad_max_abs_err"])
                    for c in encoder.values())
     phase_step_vs_cpu(runner)
@@ -3040,7 +3135,13 @@ def main():
                      "ho3d_refine": ho3d["refine"]["encoder_launches"],
                      "dp": dp["dp_encoder_launches"]},
         # phase 4: each cell's points a step and grid
-        "cells": encoder}]}), flush=True)
+        "cells": encoder}, {
+        "name": "adam_step_kernel",
+        "route": "cuda", "source": "bundlesdf_tpu_torch/csrc/adam.cu",
+        "replaces": "none (bundlesdf_tpu uses optax.scale_by_adam); torch's "
+                    "foreach Adam",
+        # phase 4: each cell's table with the MLPs and per-frame arrays
+        "cells": adam}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

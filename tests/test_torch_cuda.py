@@ -7,8 +7,9 @@ wrappers' input checks, and the tracker programs
 (depth chain into the pool, fused ORB match + lift + RANSAC, bundle
 adjustment) and the port's ORB detector (`matcher/orb.py`, with a mask,
 through the matcher's stream) on the card against the same calls on the
-CPU, at small shapes, and the NOF training step replayed as a CUDA graph
-against the same steps run eagerly. Every test needs a CUDA card and
+CPU, at small shapes, the NOF training step replayed as a CUDA graph
+against the same steps run eagerly, and the Adam kernel (`ops/adam.py`)
+against torch's foreach Adam at the three cells' tables. Every test needs a CUDA card and
 skips without one.
 
 This file imports no jax, so it also runs where jax is not installed:
@@ -647,6 +648,147 @@ def test_replayed_steps_count_their_kernel_launches(cuda_device):
     r.train(n_steps=6)
     assert _launches() - n0 == 7
     assert _launches("hashgrid.launches") - h0 == 14
+
+
+def test_steps_count_two_adam_launches(cuda_device):
+    """`adam.launches` counts the Adam kernel's launches: one for each of
+    the two parameter groups a step, eager or after a replay."""
+    from nof_tiny import tiny_runner
+    r = tiny_runner(device=cuda_device)
+    before = profiling.snapshot()
+    r.train(n_steps=1)
+    r.train(n_steps=6)
+    assert _counts(before, "nof.graph.replay", "adam.launches") == [6, 14]
+
+
+# the three cells' tables (rows x 2 features) and, beside them, the MLPs
+# of the refine configs, `feature_array` and `pose_array` (40 frames)
+_ADAM_TABLES = {"custom.online": 2_462_164, "custom.refine": 39_601_891,
+                "ho3d.refine": 84_133_278}
+_ADAM_SHAPES = [(64, 32), (64,), (16, 64), (16,), (64, 26), (64,), (64, 64),
+                (64,), (3, 64), (3,), (40, 2), (40, 6)]
+
+
+def _adam_pair(shapes, device, g, betas=(0.9, 0.999), lrs=(0.01, 0.001)):
+    """Parameters of @shapes and a copy, the kernel Adam over the first and
+    torch's foreach Adam over the copy, each with two groups (the last
+    tensor alone, as `pose_array`)."""
+    from bundlesdf_tpu_torch.ops.adam import Adam
+    init = [torch.randn(s, generator=g, device=device) * 0.1 for s in shapes]
+    mine = [torch.nn.Parameter(t.clone()) for t in init]
+    ref = [torch.nn.Parameter(t) for t in init]
+
+    def groups(ps):
+        return [{"params": ps[:-1], "lr": lrs[0], "base_lr": lrs[0]},
+                {"params": ps[-1:], "lr": lrs[1], "base_lr": lrs[1]}]
+    return (mine, Adam(groups(mine), betas=betas, eps=1e-15), ref,
+            torch.optim.Adam(groups(ref), betas=betas, eps=1e-15,
+                             foreach=True))
+
+
+def _adam_grad(shape, device, g):
+    """Sparse like the table's gradient, magnitudes over decades."""
+    grad = torch.randn(shape, generator=g, device=device)
+    grad *= torch.exp(3 * torch.randn(shape, generator=g, device=device))
+    return grad * (torch.rand(shape, generator=g, device=device) < 0.4)
+
+
+def _ulp_gaps(mine, opt, ref, ref_opt):
+    """{(tensor index, p | m | v | step): largest gap in units in the last
+    place} where the two optimizers' results differ."""
+    gaps = {}
+    for i, (p, q) in enumerate(zip(mine, ref)):
+        a, b = opt.state.get(p, {}), ref_opt.state.get(q, {})
+        assert a.keys() == b.keys(), i
+        pairs = [("p", p.detach(), q.detach())] + [
+            (n, a[k], b[k]) for n, k in (("m", "exp_avg"), ("v", "exp_avg_sq"))
+            if k in a]
+        for name, x, y in pairs:
+            gap = int((x.view(torch.int32).long()
+                       - y.view(torch.int32).long()).abs().max())
+            if gap:
+                gaps[(i, name)] = gap
+        if "step" in a and not torch.equal(a["step"], b["step"]):
+            gaps[(i, "step")] = float(a["step"] - b["step"])
+    return gaps
+
+
+@pytest.mark.parametrize("cell", list(_ADAM_TABLES))
+def test_adam_kernel_equals_foreach_adam(cuda_device, cell):
+    """50 steps of the kernel Adam and of torch's foreach Adam, two groups,
+    the staircase lr, at the cell's table plus the MLPs and per-frame
+    arrays: every parameter, moment and step count bit-equal (on failure
+    the message gives the largest gap in ulps by tensor), two launches a
+    step."""
+    from bundlesdf_tpu_torch.nof.train import TrainConfig, lr_factor_at
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    mine, opt, ref, ref_opt = _adam_pair(
+        [(_ADAM_TABLES[cell], 2)] + _ADAM_SHAPES, cuda_device, g)
+    tcfg, before = TrainConfig(), profiling.snapshot()
+    for step in range(50):
+        for p, q in zip(mine, ref):
+            p.grad = q.grad = _adam_grad(p.shape, cuda_device, g)
+        f = lr_factor_at(step, tcfg, 50)
+        for o in (opt, ref_opt):
+            for group in o.param_groups:
+                group["lr"] = group["base_lr"] * f
+            o.step()
+    torch.cuda.synchronize()
+    assert _counts(before, "adam.launches") == [100]
+    assert _ulp_gaps(mine, opt, ref, ref_opt) == {}
+
+
+def test_adam_kernel_on_unaligned_ragged_and_missing_gradients(cuda_device):
+    """The kernel's element-wise tail and its unaligned path (a parameter
+    and gradient 4 bytes off a 16-byte boundary), lerp's large-weight
+    form (beta1 0.3), and gradients that are None on every other step for
+    one parameter (so the tensors' step counts, and with them the bias
+    corrections, differ within a group): bit-equal to torch's foreach
+    Adam over 20 steps."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    shapes = [(1027,), (5, 3), (4099, 2), (7,)]
+    mine, opt, ref, ref_opt = _adam_pair(shapes, cuda_device, g,
+                                         betas=(0.3, 0.99), lrs=(0.05, 0.02))
+    for ps in (mine, ref):     # 4 bytes into a fresh allocation
+        base = torch.zeros(1028, device=cuda_device)
+        base[1:] = ps[0].detach()
+        ps[0].data = base[1:]
+    assert mine[0].data_ptr() % 16 == 4 and mine[0].is_contiguous()
+    for step in range(20):
+        for i, (p, q) in enumerate(zip(mine, ref)):
+            if i == 1 and step % 2:
+                p.grad = q.grad = None
+                continue
+            grad = _adam_grad(p.shape, cuda_device, g)
+            if i == 0:
+                gbase = torch.zeros(1028, device=cuda_device)
+                gbase[1:] = grad
+                grad = gbase[1:]
+            p.grad = q.grad = grad
+        opt.step()
+        ref_opt.step()
+    torch.cuda.synchronize()
+    assert float(opt.state[mine[1]]["step"]) == 10.0
+    assert _ulp_gaps(mine, opt, ref, ref_opt) == {}
+
+
+def test_adam_rejects_what_the_kernel_does_not_take(cuda_device):
+    from bundlesdf_tpu_torch.ops.adam import Adam
+    cases = [
+        (torch.zeros(8, dtype=torch.float64, device=cuda_device),
+         torch.ones(8, dtype=torch.float64, device=cuda_device), TypeError),
+        (torch.zeros(4, 8, device=cuda_device),
+         torch.ones(8, 4, device=cuda_device).t(), ValueError)]
+    for p, grad, error in cases:
+        p = torch.nn.Parameter(p)
+        p.grad = grad
+        with pytest.raises(error):
+            Adam([p], lr=0.1).step()
+    p = torch.nn.Parameter(torch.zeros(4, device=cuda_device))
+    q = torch.nn.Parameter(torch.zeros(4))
+    p.grad, q.grad = torch.ones_like(p), torch.ones_like(q)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        Adam([p, q], lr=0.1).step()
 
 
 # custom.refine's frame-feature gather: 2,048 rays x (64 + 256) samples,
