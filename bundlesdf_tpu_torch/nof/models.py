@@ -129,8 +129,14 @@ class NofSpec:
 
 def _linear(n_in, n_out, generator, device, bias_const=None):
     """torch.nn.Linear's default init (kaiming-uniform a=sqrt(5)): weight
-    and bias ~ U(-1/sqrt(n_in), 1/sqrt(n_in)), drawn from @generator."""
-    layer = nn.Linear(n_in, n_out, device=device)
+    and bias ~ U(-1/sqrt(n_in), 1/sqrt(n_in)), drawn from @generator. The
+    layer is made without its own init, which would draw from the default
+    generator: while another thread captures a CUDA graph (the tracker's
+    bundle adjustment), that generator counts draws as the graph's, and
+    the next draw outside it fails."""
+    layer = nn.utils.skip_init(
+        nn.Linear, n_in, n_out,
+        device=torch.get_default_device() if device is None else device)
     bound = 1.0 / np.sqrt(n_in)
     with torch.no_grad():
         layer.weight.uniform_(-bound, bound, generator=generator)

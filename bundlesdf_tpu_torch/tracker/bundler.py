@@ -9,9 +9,10 @@ lifting/gating, RANSAC, covisibility, bundle adjustment) runs on the
 device in `tracker/pool.py` and `tracker/ba.py`, and each call's results
 come back in one `HostPull`.
 
-The JAX package pads pair, correspondence and window counts to a few
-compile buckets; torch has no compile step, so the port sends the exact
-counts (the padding added only masked-out rows).
+The bundle adjustment's pair, correspondence and keyframe counts are
+padded to a few buckets with masked-out rows, as the JAX package pads
+them to compile buckets, so that on CUDA each padded shape is one CUDA
+graph, captured once and replayed (`tracker/ba_graph.py`).
 """
 from __future__ import annotations
 
@@ -22,7 +23,9 @@ import numpy as np
 import torch
 
 from bundlesdf_tpu_torch import resolve_device
-from bundlesdf_tpu_torch.tracker.ba import BAConfig, bundle_adjust_pooled
+from bundlesdf_tpu_torch.tracker.ba import BAConfig
+from bundlesdf_tpu_torch.tracker.ba_graph import (C_MIN, KF_MIN, BAGraphs,
+                                                  pow2_at_least)
 from bundlesdf_tpu_torch.tracker.frame import Frame, FrameStatus
 from bundlesdf_tpu_torch.tracker.pool import (FramePool, covis_core,
                                               lift_ransac_slots,
@@ -33,6 +36,26 @@ from bundlesdf_tpu_torch.utils.png import write_png
 from bundlesdf_tpu_torch.utils.profiling import span
 from bundlesdf_tpu_torch.utils.transfer import HostPull
 from bundlesdf_tpu_torch.utils.viz import draw_line
+
+
+def corres_arrays(blocks) -> dict:
+    """The BA's sparse correspondences from @blocks, [(j, i, match)] with
+    j frame A's and i frame B's window index (the EntryJ convention), in
+    order, padded to C = a power of two >= `C_MIN` by rows with index 0,
+    points 0 and `corr_valid` 0."""
+    n = np.array([len(m["conf"]) for _, _, m in blocks], np.int64)
+    C = int(n.sum())
+    Cp = pow2_at_least(C, C_MIN)
+    out = dict(corr_i=np.zeros(Cp, np.int64), corr_j=np.zeros(Cp, np.int64),
+               corr_pi=np.zeros((Cp, 3), np.float32),
+               corr_pj=np.zeros((Cp, 3), np.float32),
+               corr_valid=np.zeros(Cp, np.float32))
+    out["corr_j"][:C] = np.repeat([j for j, _, _ in blocks], n)
+    out["corr_i"][:C] = np.repeat([i for _, i, _ in blocks], n)
+    out["corr_pj"][:C] = np.concatenate([m["pA_cam"] for _, _, m in blocks])
+    out["corr_pi"][:C] = np.concatenate([m["pB_cam"] for _, _, m in blocks])
+    out["corr_valid"][:C] = 1.0
+    return out
 
 
 class Bundler:
@@ -61,6 +84,8 @@ class Bundler:
         self._seed_ctr = 0
         # device-resident frame-map pool; created at first frame (needs H,W)
         self.pool: FramePool | None = None
+        # the bundle adjustment, replayed as one CUDA graph per padded shape
+        self._ba = BAGraphs()
 
     # ------------------------------------------------------------------
     # frame-map pool
@@ -888,36 +913,29 @@ class Bundler:
         bcfg = self.cfg["bundle"]
         idx_of = {f.id: k for k, f in enumerate(frames)}
 
-        corr_i, corr_j, pi, pj = [], [], [], []
+        # EntryJ convention: j=frameA index, i=frameB index
+        blocks = []
         for a in range(len(frames)):
             for b in range(a + 1, len(frames)):
                 fA, fB = frames[b], frames[a]
                 m = self.matches.get((fA.id, fB.id))
-                if m is None or len(m["conf"]) == 0:
-                    continue
-                # EntryJ convention: j=frameA index, i=frameB index
-                n = len(m["conf"])
-                corr_j += [idx_of[fA.id]] * n
-                corr_i += [idx_of[fB.id]] * n
-                pj.append(m["pA_cam"])
-                pi.append(m["pB_cam"])
+                if m is not None and len(m["conf"]) > 0:
+                    blocks.append((idx_of[fA.id], idx_of[fB.id], m))
 
-        if not corr_i:
+        if not blocks:
             logging.info(f"frame {self.new_frame.id_str}: zero global corres,"
                          " FAIL")
             self.new_frame.status = FrameStatus.FAIL
             return
 
-        corr_i_a = np.array(corr_i, np.int64)
-        corr_j_a = np.array(corr_j, np.int64)
-        pi_a = np.concatenate(pi).astype(np.float32)
-        pj_a = np.concatenate(pj).astype(np.float32)
-        valid = np.ones(len(corr_i), np.float32)
-        C = len(corr_i)
-
         N = len(frames)
         slots = np.array([self._slot(f) for f in frames], np.int64)
-        slot_live = np.ones(N, np.float32)
+        arrays = dict(slots=slots, slot_live=np.ones(N, np.float32),
+                      poses0=np.stack([f.pose_in_model for f in frames])
+                      .astype(np.float32),
+                      K=np.asarray(frames[0].K, np.float32))
+        arrays.update(corres_arrays(blocks))
+        C = int(arrays["corr_valid"].sum())
         scales = (bcfg["image_downscale"]
                   if isinstance(bcfg["image_downscale"], (list, tuple))
                   else [bcfg["image_downscale"]])
@@ -925,6 +943,7 @@ class Bundler:
         for k, f in enumerate(frames):
             if k > 0 and not f.nerfed:
                 update_flags[k] = 1.0
+        arrays["update_flags"] = update_flags
 
         # dense-pair pruning (exact): pairs where BOTH frames are pinned
         # (frame 0 / nerfed) contribute zero gradient but would pay the
@@ -943,10 +962,15 @@ class Bundler:
         live_pairs = [(i, j) for i in range(N) for j in range(i + 1, N)
                       if (update_flags[i] > 0 or update_flags[j] > 0)
                       and _rot_ok(i, j)]
-        # one masked-out pair keeps the shapes non-empty when all are pruned
-        pair_ij = np.asarray(live_pairs or [(0, min(1, N - 1))], np.int64)
-        pair_valid = np.full(len(pair_ij), 1.0 if live_pairs else 0.0,
-                             np.float32)
+        # the pair rows padded to all N(N-1)/2 pairs with masked-out rows,
+        # which also keep the shapes non-empty when every pair is pruned
+        P = max(1, N * (N - 1) // 2)
+        pair_ij = np.tile(np.array([0, min(1, N - 1)], np.int64), (P, 1))
+        pair_valid = np.zeros(P, np.float32)
+        if live_pairs:
+            pair_ij[:len(live_pairs)] = live_pairs
+            pair_valid[:len(live_pairs)] = 1.0
+        arrays.update(pair_ij=pair_ij, pair_valid=pair_valid)
 
         # hybrid entry association: the wide windowed search runs only on
         # the UNCERTAIN pairs — those touching the new frame (its
@@ -969,24 +993,25 @@ class Bundler:
         unc = {k for k, f in enumerate(frames) if _uncertain(f)}
         nf_rows = [r for r, (i, j) in enumerate(live_pairs)
                    if i in unc or j in unc]
-        # no uncertain pair: one row aimed past the end, which is dropped
-        pair_ij_w = (pair_ij[nf_rows] if nf_rows
-                     else np.zeros((1, 2), np.int64))
-        pair_w_dst = (np.asarray(nf_rows, np.int64) if nf_rows
-                      else np.full(1, len(pair_ij), np.int64))
+        # padded by rows aimed past the end, which are dropped, to the new
+        # frame's N-1 pairs (the common case: no padding), or else to P
+        Pw = N - 1 if len(nf_rows) <= N - 1 else P
+        pair_ij_w = np.zeros((Pw, 2), np.int64)
+        pair_w_dst = np.full(Pw, P, np.int64)
+        pair_ij_w[:len(nf_rows)] = pair_ij[nf_rows]
+        pair_w_dst[:len(nf_rows)] = nf_rows
 
         self._save_ba_poses(frames, "before")
         # shapes of the BA problem (association cost = live_pairs x D)
         self._last_ba_stats = {"P": len(live_pairs), "N": N, "C": C,
                                "Pw": len(nf_rows)}
-        t = self._t
-        poses = t(np.stack([f.pose_in_model for f in frames]),
-                  torch.float32)
 
         # keyframe-admission covisibility is computed at the post-BA poses
-        # by the last BA call (checkAndAddKeyframe needs it right after)
+        # by the last BA call (checkAndAddKeyframe needs it right after);
+        # the keyframes are padded to a power of two, and the padded rows'
+        # covisibility is never read
         kfs = self.keyframes
-        KF = max(len(kfs), 1)
+        KF = pow2_at_least(len(kfs), KF_MIN)
         kf_slots = np.zeros(KF, np.int64)
         kf_poses = np.tile(np.eye(4, dtype=np.float32), (KF, 1, 1))
         kf_window_idx = np.full(KF, -1, np.int64)
@@ -994,18 +1019,16 @@ class Bundler:
             kf_slots[k] = self._slot(kf)
             kf_poses[k] = kf.pose_in_model.astype(np.float32)
             kf_window_idx[k] = idx_of.get(kf.id, -1)
-        nf_idx = idx_of[self.new_frame.id]
+        admission = dict(nf_idx=np.array([idx_of[self.new_frame.id]],
+                                         np.int64),
+                         kf_slots=kf_slots, kf_poses=kf_poses,
+                         kf_window_idx=kf_window_idx)
         thres_cos = float(np.cos(np.deg2rad(self.cfg["visible_angle"])))
-        common = dict(slots=t(slots), slot_live=t(slot_live),
-                      K=t(np.asarray(frames[0].K, np.float32)),
-                      pair_ij=t(pair_ij), corr_i=t(corr_i_a),
-                      corr_j=t(corr_j_a), corr_pi=t(pi_a), corr_pj=t(pj_a),
-                      corr_valid=t(valid), update_flags=t(update_flags),
-                      pair_valid=t(pair_valid))
         # coarse-to-fine scale loop (ref LossGPU.cpp:79-131): the sparse
         # feature-match term runs only at the FIRST scale; later scales
         # refine with the dense p2p term alone (m_localWeightsSparse
         # resized to 0 for iter>0, LossGPU.cpp:110-113)
+        out = None
         for it, scale in enumerate(scales):
             factor = int(scale)
             cfg_ba = BAConfig(
@@ -1055,25 +1078,25 @@ class Bundler:
             # even factors read the pool's half-res pyramid
             half = factor % 2 == 0
             pd = 2 if half else 1
-            p_xyzs = self.pool.xyzs_h if half else self.pool.xyzs
-            p_nrms = self.pool.nrms_h if half else self.pool.nrms
-            p_valids = self.pool.valids_h if half else self.pool.valids
-            p_greys = None
+            maps = dict(pool_xyzs=self.pool.xyzs_h if half else self.pool.xyzs,
+                        pool_nrms=self.pool.nrms_h if half else self.pool.nrms,
+                        pool_greys=None)
             if cfg_ba.w_dense_color > 0 and self.pool.greys is not None:
-                p_greys = self.pool.greys_h if half else self.pool.greys
-            admission = dict(
-                pool_valids=p_valids, nf_idx=nf_idx, kf_slots=t(kf_slots),
-                kf_poses=t(kf_poses), kf_window_idx=t(kf_window_idx),
-                covis_thres_cos=thres_cos) if last else {}
-            out = bundle_adjust_pooled(
-                p_xyzs, p_nrms, poses0=poses, src_idx=t(src_idx),
-                src_valid=t(src_valid), factor=factor, cfg=cfg_ba,
-                pre_decim=pd, pool_greys=p_greys,
-                **({"pair_ij_w": t(pair_ij_w), "pair_w_dst": t(pair_w_dst)}
-                   if cfg_ba.assoc_entry_mode == "hybrid" else {}),
-                **common, **admission)
-            if not last:  # intermediate scales feed the next scale's assoc
-                poses = out
+                maps["pool_greys"] = (self.pool.greys_h if half
+                                      else self.pool.greys)
+            call = dict(arrays, src_idx=src_idx, src_valid=src_valid)
+            if cfg_ba.assoc_entry_mode == "hybrid":
+                call.update(pair_ij_w=pair_ij_w, pair_w_dst=pair_w_dst)
+            static = dict(factor=factor, cfg=cfg_ba, pre_decim=pd)
+            if last:
+                maps["pool_valids"] = (self.pool.valids_h if half
+                                       else self.pool.valids)
+                call.update(admission)
+                static["covis_thres_cos"] = thres_cos
+            # intermediate scales feed the next scale's assoc; the sums
+            # over correspondences and pairs take the real counts
+            out = self._ba(call, maps, poses_in=out, n_corr=C,
+                           n_pairs=max(len(live_pairs), 1), **static)
         # the copies back start now and land while the host moves on
         return {"out": HostPull({"poses": out[0], "covis": out[1]},
                                 "track.ba"),

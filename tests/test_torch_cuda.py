@@ -8,8 +8,10 @@ wrappers' input checks, and the tracker programs
 adjustment) and the port's ORB detector (`matcher/orb.py`, with a mask,
 through the matcher's stream) on the card against the same calls on the
 CPU, at small shapes, the NOF training step replayed as a CUDA graph
-against the same steps run eagerly, and the Adam kernel (`ops/adam.py`)
-against torch's foreach Adam at the three cells' tables. Every test needs a CUDA card and
+against the same steps run eagerly, the Adam kernel (`ops/adam.py`)
+against torch's foreach Adam at the three cells' tables, and the tracker's
+bundle adjustment replayed as CUDA graphs (`tracker/ba_graph.py`) against
+the eager BA on the same padded inputs. Every test needs a CUDA card and
 skips without one.
 
 This file imports no jax, so it also runs where jax is not installed:
@@ -851,3 +853,153 @@ def test_host_pull_wait_is_its_span(cuda_device):
     pull.get()
     n = profiling.snapshot()["pull.track.test"][0]
     assert n - before.get("pull.track.test", (0, 0.0))[0] == 1
+
+
+def _eager_ba(arrays, maps, poses_in=None, **static):
+    """The tracker's BA on the padded inputs, eagerly: each array uploaded
+    on its own."""
+    from bundlesdf_tpu_torch.tracker.ba import bundle_adjust_pooled
+    dev = maps["pool_xyzs"].device
+    ins = {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
+    if poses_in is not None:
+        ins["poses0"] = poses_in
+    return bundle_adjust_pooled(**maps, **ins, **static)
+
+
+class _ReplayAgainstEager:
+    """Wraps a bundler's `BAGraphs`: each call (capture or replay) runs with
+    the sync check on, and its result is compared with an eager run on the
+    same padded inputs."""
+
+    def __init__(self, inner):
+        self.inner, self.calls, self.unequal, self.syncs = inner, 0, [], []
+
+    def __call__(self, arrays, maps, poses_in=None, **static):
+        import warnings
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = self.inner(arrays, maps, poses_in, **static)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        # each synchronising call warns; the mode's own notice does not count
+        self.syncs += [str(w.message) for w in seen
+                       if "synchroniz" in str(w.message).lower()
+                       and "prototype" not in str(w.message)]
+        want = _eager_ba(arrays, maps, poses_in, **static)
+        out_t = out if isinstance(out, tuple) else (out,)
+        want_t = want if isinstance(want, tuple) else (want,)
+        if not all(torch.equal(a, b) for a, b in zip(out_t, want_t)):
+            self.unequal.append(self.calls)
+        self.calls += 1
+        return out
+
+
+@pytest.fixture(scope="module")
+def ba_graph_runs(tmp_path_factory):
+    """30 frames of an orbit (~2.3 degrees a frame, so the window, the
+    correspondences and the keyframes change the BA's padded shapes)
+    tracked on the card with the port's ORB: once through the BA's graphs,
+    each call checked against an eager run, and once with the eager BA."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the BA's CUDA graphs")
+    from synthetic import cube_orbit_sequence
+
+    from bundlesdf_tpu_torch.bundlesdf import BundleSdf
+    from bundlesdf_tpu_torch.config import default_track_config
+    from bundlesdf_tpu_torch.tracker.ba import _cos_deg
+    seq = cube_orbit_sequence(n_frames=30, H=120, W=160, radius=0.45,
+                              obj_size=0.08, full_angle=1.2)
+    # the BA's one upload, made once a device before any capture
+    _cos_deg(default_track_config()["p2p"]["max_normal_angle"],
+             torch.device("cuda", torch.cuda.current_device()))
+    out = {}
+    for name in ("graph", "eager"):
+        cfg = default_track_config()
+        cfg["debug_dir"] = str(tmp_path_factory.mktemp(name))
+        cfg["SPDLOG"] = 0
+        cfg["ransac"]["max_trans_neighbor"] = 0.05
+        cfg["ransac"]["max_iter"] = 500
+        cfg["bundle"]["max_BA_frames"] = 5
+        cfg["bundle"]["depth_association_radius"] = 2
+        cfg["feature_corres"]["fused_matcher"] = True
+        t = BundleSdf(cfg_track=cfg, start_nerf_keyframes=10 ** 9,
+                      device="cuda")
+        b = t.bundler
+        wrap = b._ba = (_ReplayAgainstEager(b._ba) if name == "graph"
+                        else _eager_ba)
+        before = profiling.snapshot()
+        frames = [t.run(seq["colors"][i], seq["depths"][i].copy(), seq["K"],
+                        seq["id_strs"][i], mask=seq["masks"][i])
+                  for i in range(30)]
+        t.flush_pipeline()
+        out[name] = dict(poses=np.array([f.pose_in_model for f in frames]),
+                         wrap=wrap, n_kf=len(b.keyframes),
+                         counts=_counts(before, "ba.graph.captures",
+                                        "ba.graph.replays"))
+    return out
+
+
+def test_ba_replays_equal_eager_runs(ba_graph_runs):
+    """Every BA call of the run, replayed, is bit-equal to the eager BA on
+    the same padded inputs; the run's keys changed, each capture was one
+    key's first call, and every call replayed."""
+    g = ba_graph_runs["graph"]
+    wrap = g["wrap"]
+    assert wrap.calls >= 20 and wrap.unequal == []
+    captures, replays = g["counts"]
+    assert replays == wrap.calls and 2 <= captures <= len(wrap.inner)
+    assert g["n_kf"] > 8                   # the keyframe bucket changed too
+
+
+def test_ba_graph_tracker_equals_eager_tracker(ba_graph_runs):
+    """The tracker through the BA's graphs against the same tracker with
+    the eager BA on the same padded shapes: poses within 1e-6."""
+    gap = np.abs(ba_graph_runs["graph"]["poses"]
+                 - ba_graph_runs["eager"]["poses"]).max()
+    assert gap <= 1e-6
+    assert ba_graph_runs["eager"]["counts"] == [0, 0]
+
+
+def test_ba_capture_and_replay_wait_on_nothing(ba_graph_runs):
+    """No call of the graphs, captures included, synchronises with the
+    card (`torch.cuda.set_sync_debug_mode`); a capture that waited would
+    have failed."""
+    wrap = ba_graph_runs["graph"]["wrap"]
+    assert wrap.syncs == []
+
+
+def test_nof_field_is_made_while_another_thread_captures(cuda_device):
+    """The threaded online loop builds a NOF field (each keyframe batch)
+    while the tracker's thread may capture its BA as a CUDA graph; the
+    field's layers draw from the field's generator alone, so neither the
+    capture nor the field fails."""
+    import threading
+
+    from bundlesdf_tpu_torch.nof.models import NofField, NofSpec
+    spec = NofSpec(grid=HashGridSpec(n_levels=2, base_res=4, finest_res=8,
+                                     log2_hashmap_size=8))
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    made, errors = [], []
+
+    def build():
+        try:
+            made.append(NofField(spec, generator=gen, device=cuda_device))
+        except RuntimeError as e:
+            errors.append(e)
+
+    x = torch.zeros(8, device=cuda_device)
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream(cuda_device)
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        x.add_(1.0)
+        t = threading.Thread(target=build)
+        t.start()
+        t.join()
+        graph.capture_end()
+    build()                    # the first field made after the capture
+    graph.replay()
+    torch.cuda.synchronize()
+    assert errors == [] and len(made) == 2
+    assert torch.equal(x, torch.ones_like(x))
